@@ -1,0 +1,208 @@
+"""The sampled-MPC control tick on two kernels (port of ``mpc/fused_tick.py``).
+
+One tick: slice the reference window, broadcast the state and the warm
+start to the B lanes, run the batched SQP solve (K1), run the tick
+epilogue (K2: consensus, argmin, winner gather, plant step, trace FK),
+gather the winning lane's trajectory, resample the wrench hypotheses and
+random-walk the true wrench.  On CUDA both kernels run in float32; on the
+CPU their plain versions run in the carry's dtype.  The tick never reads a
+device value on the host.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import (
+    CostConfig, MPCConfig, PlantConfig, SampleConfig, SQPConfig,
+)
+from ..models.robot import RobotModel
+from ..ops.kernels.sqp_kernel import kernel_supports, sqp_solve
+from ..ops.kernels.tick_kernel import tick_epilogue
+from ..ops.lane_rbd import STATIC_FIELDS, StaticModel, static_model
+from ..sim.plant import perturb_model
+from .sampled import (
+    SampledLoopCarry, SampledTrace, TickDraws, resample_wrench_batch,
+)
+
+
+def reference_window(ref_traj, offset, N: int):
+    """``ref_traj[offset : offset + N]`` with the start clamped to
+    ``[0, len - N]``, as ``jax.lax.dynamic_slice_in_dim`` does; ``offset``
+    is a 0-d integer tensor."""
+    start = torch.clamp(offset, 0, ref_traj.shape[0] - N)
+    return ref_traj.index_select(
+        0, start + torch.arange(N, device=ref_traj.device)
+    )
+
+
+class FusedLoopTick(nn.Module):
+    """``tick(carry, draws=None) -> (carry, SampledTrace)``.
+
+    Buffers: the reference trajectory and the controller and plant static
+    models (``smc_*``, ``smp_*``).  Without ``draws`` the tick draws its
+    random numbers from ``generator``, which must live on the carry's
+    device.
+    """
+
+    def __init__(
+        self,
+        model: RobotModel,
+        cost_cfg: CostConfig,
+        sqp_cfg: SQPConfig,
+        mpc_cfg: MPCConfig,
+        sample_cfg: SampleConfig,
+        ref_traj,
+        f_true_walk: bool = True,
+        plant_cfg: Optional[PlantConfig] = None,
+        plant_model: Optional[RobotModel] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if not kernel_supports(cost_cfg, sqp_cfg):
+            raise ValueError(
+                "the tick covers the production config only "
+                "(formulation='gn', qp_backend='riccati')"
+            )
+        ref_traj = torch.as_tensor(ref_traj)
+        if ref_traj.shape[0] < mpc_cfg.N:
+            raise ValueError("reference trajectory shorter than the horizon")
+        self.cost_cfg, self.sqp_cfg = cost_cfg, sqp_cfg
+        self.sample_cfg = sample_cfg
+        self.N, self.dt = mpc_cfg.N, mpc_cfg.dt
+        self.f_true_walk = f_true_walk
+        self.plant_cfg = plant_cfg or PlantConfig(substeps=mpc_cfg.sim_substeps)
+        self.generator = generator
+        plant = perturb_model(
+            model if plant_model is None else plant_model, self.plant_cfg
+        )
+        self.register_buffer("ref_traj", ref_traj)
+        for prefix, sm in (("smc", static_model(model)), ("smp", static_model(plant))):
+            for f in STATIC_FIELDS:
+                self.register_buffer(f"{prefix}_{f}", getattr(sm, f))
+        self._static = {}
+
+    def _apply(self, fn, recurse=True):
+        self._static = {}  # buffers move: rebuild the static models
+        return super()._apply(fn, recurse)
+
+    def static_models(self, dtype: torch.dtype):
+        """(controller, plant) StaticModels in ``dtype``, built once."""
+        if dtype not in self._static:
+            self._static[dtype] = tuple(
+                StaticModel(
+                    **{f: getattr(self, f"{p}_{f}").to(dtype) for f in STATIC_FIELDS}
+                )
+                for p in ("smc", "smp")
+            )
+        return self._static[dtype]
+
+    def draw(self, device, dtype) -> TickDraws:
+        if self.generator is None:
+            raise ValueError("tick called without draws and without a generator")
+        g = self.generator
+        B, noise = self.sample_cfg.batch_size, bool(self.plant_cfg.torque_noise_std)
+        return TickDraws(
+            resample=torch.randn((B, 6), generator=g, device=device, dtype=dtype),
+            walk=torch.randn(3, generator=g, device=device, dtype=dtype),
+            plant=torch.randn(
+                (self.plant_cfg.substeps, 6), generator=g, device=device, dtype=dtype
+            ) if noise else None,
+        )
+
+    def forward(self, carry: SampledLoopCarry, draws: Optional[TickDraws] = None):
+        x = carry.x
+        dtype, device = x.dtype, x.device
+        kdt = torch.float32 if device.type == "cuda" else dtype
+        smc, smp = self.static_models(kdt)
+        N, B = self.N, self.sample_cfg.batch_size
+        if draws is None:
+            draws = self.draw(device, dtype)
+        goals = reference_window(self.ref_traj, carry.ref_offset, N).to(dtype)
+
+        # ---- K1: the batched solve, lanes broadcast from one warm start ----
+        xk = x.to(kdt)
+        X0 = carry.X_best.to(kdt).clone()
+        X0[0] = xk
+        fb_T = carry.f_batch.to(kdt).T.contiguous()
+        X, U, _rho, _alphas, _steps = sqp_solve(
+            smc, self.cost_cfg, self.sqp_cfg, self.dt,
+            xk[:, None].expand(12, B).contiguous(),
+            goals.to(kdt)[:, :, None].expand(N, 3, B).contiguous(),
+            X0[:, :, None].expand(N, 12, B).contiguous(),
+            carry.U_best.to(kdt)[:, :, None].expand(N - 1, 6, B).contiguous(),
+            wrench=fb_T,
+        )
+
+        # ---- K2: consensus, winner, plant, trace FK ----
+        noise = None
+        if self.plant_cfg.torque_noise_std:
+            noise = (self.plant_cfg.torque_noise_std * draws.plant).to(kdt).contiguous()
+        ep = tick_epilogue(
+            smc, smp, self.plant_cfg, self.dt, xk,
+            carry.x_last.to(kdt).contiguous(), carry.u_last.to(kdt).contiguous(),
+            fb_T, U[0], carry.f_true.to(kdt).contiguous(), noise,
+        )
+
+        # Winner trajectory for the next warm start (device index, no sync).
+        idx = ep.best.reshape(1)
+        X_best = X.index_select(2, idx)[:, :, 0].to(carry.X_best.dtype)
+        U_best = U.index_select(2, idx)[:, :, 0].to(carry.U_best.dtype)
+        f_new = resample_wrench_batch(
+            draws.resample, carry.f_batch, ep.best, self.sample_cfg
+        )
+
+        # True-disturbance random walk every 200 reference steps, +-20 N.
+        walked = carry.f_true.clone()
+        walked[:3] = torch.clamp(carry.f_true[:3] + draws.walk, -20.0, 20.0)
+        do_walk = (carry.ref_offset % 200 == 0) & self.f_true_walk
+        f_true = torch.where(do_walk, walked, carry.f_true)
+
+        eep = ep.eep.to(dtype)
+        u = ep.u.to(dtype)
+        trace = SampledTrace(
+            tracking_error=torch.sqrt(((eep - goals[0]) ** 2).sum()),
+            ee_pos=eep,
+            ee_ref=goals[0],
+            q=x[:6],
+            u=u,
+            best_idx=ep.best,
+            f_est=ep.f_est.to(dtype),
+            f_true=carry.f_true,
+            x=x,
+        )
+        new_carry = SampledLoopCarry(
+            x=ep.x_next.to(dtype),
+            x_last=x,
+            u_last=u.to(carry.u_last.dtype),
+            X_best=X_best,
+            U_best=U_best,
+            f_batch=f_new,
+            f_true=f_true,
+            ref_offset=carry.ref_offset + 1,
+        )
+        return new_carry, trace
+
+
+def make_fused_loop_tick(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    mpc_cfg: MPCConfig,
+    sample_cfg: SampleConfig,
+    ref_traj,
+    f_true_walk: bool = True,
+    plant_cfg: Optional[PlantConfig] = None,
+    plant_model: Optional[RobotModel] = None,
+    generator: Optional[torch.Generator] = None,
+) -> FusedLoopTick:
+    """The two-kernel tick on the device of ``ref_traj`` (move it with
+    ``.to``)."""
+    ref = torch.as_tensor(ref_traj)
+    return FusedLoopTick(
+        model, cost_cfg, sqp_cfg, mpc_cfg, sample_cfg, ref,
+        f_true_walk=f_true_walk, plant_cfg=plant_cfg, plant_model=plant_model,
+        generator=generator,
+    ).to(ref.device)

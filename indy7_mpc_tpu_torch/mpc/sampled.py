@@ -1,0 +1,158 @@
+"""Sampled MPC: batched wrench-hypothesis estimation and consensus control.
+
+Port of ``indy7_mpc_tpu/mpc/sampled.py``.  B lanes each solve the same
+tracking problem under their own hypothesized external wrench; consensus
+keeps the lane whose one-step prediction best matches the observed state,
+and the hypotheses are resampled around the winner.  The closed loop is a
+Python loop over the two-kernel tick of ``mpc/fused_tick.py``.
+
+Random numbers come from an explicit ``torch.Generator`` on the carry's
+device; a tick can instead take its draws (:class:`TickDraws`) from the
+caller, which is how the tests replay the TPU package's random stream.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from ..config import (
+    CostConfig, MPCConfig, PlantConfig, SampleConfig, SQPConfig,
+)
+from ..models.robot import RobotModel
+
+
+def init_wrench_batch(
+    generator: torch.Generator, cfg: SampleConfig, dtype=torch.float32,
+    device=None,
+):
+    """Initial hypothesis batch: N(0, f_ext_std) forces, zero torques, lane
+    0 pinned to zero."""
+    f = cfg.f_ext_std * torch.randn(
+        (cfg.batch_size, 6), generator=generator, dtype=dtype, device=device
+    )
+    f[:, 3:] = 0.0
+    f[0] = 0.0
+    return f
+
+
+def resample_wrench_batch(normals, f_batch, best_idx, cfg: SampleConfig):
+    """Resample around the winner: copy it, add resample_std * normals,
+    restore the winner's row, zero torques, re-pin lane 0, decay.
+
+    ``normals`` (B, 6) are standard normal draws; ``best_idx`` is a 0-d
+    integer tensor (no host sync)."""
+    idx = best_idx.reshape(1)
+    f_best = f_batch.index_select(0, idx)
+    f = (f_best + cfg.f_ext_resample_std * normals).index_copy(0, idx, f_best)
+    f[:, 3:] = 0.0
+    f[0] = 0.0
+    return f * cfg.decay
+
+
+class SampledLoopCarry(NamedTuple):
+    x: torch.Tensor          # (12,) plant state
+    x_last: torch.Tensor     # (12,) previous state (consensus replay start)
+    u_last: torch.Tensor     # (6,) previously applied control
+    X_best: torch.Tensor     # (N, 12) winning trajectory (warm start)
+    U_best: torch.Tensor     # (N-1, 6)
+    f_batch: torch.Tensor    # (B, 6) wrench hypotheses
+    f_true: torch.Tensor     # (6,) true disturbance on the plant
+    ref_offset: torch.Tensor  # () int64 reference index
+
+
+class SampledTrace(NamedTuple):
+    tracking_error: torch.Tensor  # (T,)
+    ee_pos: torch.Tensor          # (T, 3)
+    ee_ref: torch.Tensor          # (T, 3)
+    q: torch.Tensor               # (T, nq)
+    u: torch.Tensor               # (T, nu)
+    best_idx: torch.Tensor        # (T,)
+    f_est: torch.Tensor           # (T, 6)
+    f_true: torch.Tensor          # (T, 6)
+    x: torch.Tensor               # (T, nx)
+
+
+class TickDraws(NamedTuple):
+    """One tick's standard normal draws."""
+
+    resample: torch.Tensor           # (B, 6) hypothesis resampling
+    walk: torch.Tensor               # (3,) true-wrench random walk
+    plant: Optional[torch.Tensor]    # (substeps, 6) actuation noise, or None
+
+
+def init_loop_carry(
+    model: RobotModel,
+    mpc_cfg: MPCConfig,
+    sample_cfg: SampleConfig,
+    x0,
+    f_true0,
+    generator: torch.Generator,
+) -> SampledLoopCarry:
+    """Cold start: zero trajectories, a fresh hypothesis batch."""
+    N, dtype, device = mpc_cfg.N, x0.dtype, x0.device
+    X_best = torch.zeros((N, model.nx), dtype=dtype, device=device)
+    X_best[0] = x0
+    return SampledLoopCarry(
+        x=x0,
+        x_last=x0,
+        u_last=torch.zeros(model.nu, dtype=dtype, device=device),
+        X_best=X_best,
+        U_best=torch.zeros((N - 1, model.nu), dtype=dtype, device=device),
+        f_batch=init_wrench_batch(generator, sample_cfg, dtype, device),
+        f_true=torch.as_tensor(f_true0, dtype=dtype, device=device),
+        ref_offset=torch.zeros((), dtype=torch.int64, device=device),
+    )
+
+
+def run_sampled_mpc(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    mpc_cfg: MPCConfig,
+    sample_cfg: SampleConfig,
+    x0,
+    ref_traj,
+    num_steps: int,
+    f_true0,
+    generator: torch.Generator,
+    f_true_walk: bool = True,
+    plant_cfg: Optional[PlantConfig] = None,
+    plant_model: Optional[RobotModel] = None,
+    carry0: Optional[SampledLoopCarry] = None,
+    draws: Optional[Sequence[TickDraws]] = None,
+):
+    """Closed loop: sampled controller against the device plant.
+
+    Runs on x0's device: on CUDA through the SQP and tick kernels, on the
+    CPU through their plain versions.
+
+    Args:
+      ref_traj: (T_ref, 3) EE reference positions, T_ref >= num_steps + N.
+      f_true0: (6,) true disturbance wrench applied to the plant.
+      generator: torch.Generator on x0's device for the initial hypotheses
+        and every tick's draws.
+      plant_cfg: ground-truth plant perturbations (config.PERTURBED_PLANT
+        is the standard setting); None = the controller's own model.
+      plant_model: optional distinct model for the plant.
+      carry0: start from this carry instead of :func:`init_loop_carry`.
+      draws: per-tick draws to use instead of the generator's.
+
+    Returns (final carry, SampledTrace stacked over ticks).
+    """
+    from .fused_tick import make_fused_loop_tick
+
+    tick = make_fused_loop_tick(
+        model, cost_cfg, sqp_cfg, mpc_cfg, sample_cfg,
+        torch.as_tensor(ref_traj, dtype=x0.dtype, device=x0.device),
+        f_true_walk=f_true_walk, plant_cfg=plant_cfg, plant_model=plant_model,
+        generator=generator,
+    )
+    carry = carry0
+    if carry is None:
+        carry = init_loop_carry(model, mpc_cfg, sample_cfg, x0, f_true0, generator)
+    traces = []
+    for t in range(num_steps):
+        carry, trace = tick(carry, None if draws is None else draws[t])
+        traces.append(trace)
+    return carry, SampledTrace(*(torch.stack(f) for f in zip(*traces)))

@@ -1,0 +1,107 @@
+"""Build and load the CUDA kernels: nvcc into a shared library, ctypes.
+
+The sources in ``indy7_mpc_tpu_torch/csrc/`` (and nothing else) are
+compiled for ``sm_90a`` at first use into ``build/indy7_mpc_tpu_torch/``
+beside the package, under a file lock, cached by a hash of the sources and
+flags.  The library has a plain C interface: every pointer and the stream
+pass as ``c_void_p``; each entry returns ``cudaGetLastError()``.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import List
+
+from . import _abi
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "indy7_mpc_tpu_torch"
+CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # looked for when nvcc is not on PATH
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA kernels could not be built or loaded."""
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.access(CUDA_NVCC, os.X_OK):
+        nvcc = CUDA_NVCC
+    if nvcc is None:
+        raise KernelBuildError(
+            f"nvcc not found on PATH or at {CUDA_NVCC}: the CUDA kernels of "
+            "indy7_mpc_tpu_torch cannot be built"
+        )
+    return nvcc
+
+
+def nvcc_command(nvcc: str, out: Path) -> List[str]:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if the cached library is missing; return it."""
+    nvcc = find_nvcc()
+    out = BUILD_DIR / f"libindy7_kernels_{_source_hash()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # built by another process while we waited
+            return out
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run(
+            nvcc_command(nvcc, tmp), capture_output=True, text=True
+        )
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}"
+            )
+        os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with its C signatures."""
+    lib = ctypes.CDLL(str(build()))
+    ptr = ctypes.c_void_p
+    lib.indy7_sqp_solve.argtypes = [_abi.ModelConsts, _abi.SolveParams] + [ptr] * 13
+    lib.indy7_sqp_solve.restype = ctypes.c_int
+    lib.indy7_sqp_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.indy7_sqp_scratch_floats.restype = ctypes.c_longlong
+    lib.indy7_tick_epilogue.argtypes = [
+        _abi.ModelConsts, _abi.ModelConsts, _abi.PlantParams,
+    ] + [ptr] * 14
+    lib.indy7_tick_epilogue.restype = ctypes.c_int
+    return lib
+
+
+def build_log() -> str:
+    """The compiler output of the current build (registers, spills)."""
+    path = BUILD_DIR / f"libindy7_kernels_{_source_hash()}.log"
+    return path.read_text() if path.exists() else ""

@@ -1,0 +1,114 @@
+"""Kernel K1: the batched SQP solve (``csrc/sqp_kernel.cu``) and its wrapper.
+
+Replaces ``indy7_mpc_tpu/ops/pallas/sqp_kernel.py``.  For CPU tensors the
+wrapper runs the plain PyTorch version (``solvers/sqp_lane.py``); for CUDA
+tensors it launches the kernel or raises.  Unlike the TPU kernel, any lane
+count B is taken: the lane padding to 8/128 was a TPU tiling artifact.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...config import CostConfig, SQPConfig
+from ...solvers.sqp_lane import solve_lane_major
+from .. import lane_rbd as LR
+from . import _abi, _build
+
+MAX_ALPHAS = 16  # kMaxAlphas in csrc/sqp_kernel.cu
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(name, t, shape, device):
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(
+            f"{name}: expected float32 on {device}, got {t.dtype} on {t.device}"
+        )
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def kernel_supports(cost_cfg: CostConfig, sqp_cfg: SQPConfig) -> bool:
+    """The configurations the kernel and its plain version implement: the
+    Gauss-Newton formulation with the Riccati QP backend."""
+    return cost_cfg.formulation == "gn" and sqp_cfg.qp_backend == "riccati"
+
+
+def sqp_solve(
+    sm: LR.StaticModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    dt: float,
+    xs,
+    goals,
+    X,
+    U,
+    wrench=None,
+    rho=None,
+):
+    """Batched SQP solve on lane-major tensors (the contract of the TPU
+    package's ``sqp_solve_pallas``).
+
+    xs (12, B), goals (N, 3, B), X (N, 12, B), U (N-1, 6, B), wrench (6, B)
+    or None, rho (B,) or None.  Returns (X (N, 12, B), U (N-1, 6, B),
+    rho (B,), alphas (iters, B), steps (iters, B)).  On CUDA every tensor
+    must be float32 and contiguous.  Any configuration other than
+    formulation 'gn' with qp_backend 'riccati' raises.
+    """
+    if not kernel_supports(cost_cfg, sqp_cfg):
+        raise ValueError(
+            f"sqp_solve implements formulation='gn' with qp_backend='riccati' only, "
+            f"got {cost_cfg.formulation!r} with {sqp_cfg.qp_backend!r}"
+        )
+    if xs.device.type == "cpu":
+        X, U, rho, alphas, steps, _ = solve_lane_major(
+            sm, cost_cfg, sqp_cfg, dt, xs, goals, X, U, wrench=wrench, rho=rho
+        )
+        return X, U, rho, alphas, steps
+    if xs.device.type != "cuda":
+        raise ValueError(f"sqp_solve: unsupported device {xs.device}")
+    if sqp_cfg.num_alphas > MAX_ALPHAS:
+        raise ValueError(f"the SQP kernel takes at most {MAX_ALPHAS} alphas")
+    device = xs.device
+    N, B = X.shape[0], X.shape[-1]
+    if N < 2 or B < 1:
+        raise ValueError(f"sqp_solve: need N >= 2 and B >= 1, got N={N}, B={B}")
+    if rho is None:
+        rho = torch.full((B,), sqp_cfg.rho, dtype=torch.float32, device=device)
+    _check("xs", xs, (12, B), device)
+    _check("goals", goals, (N, 3, B), device)
+    _check("X", X, (N, 12, B), device)
+    _check("U", U, (N - 1, 6, B), device)
+    _check("rho", rho, (B,), device)
+    if wrench is not None:
+        _check("wrench", wrench, (6, B), device)
+
+    lib = _build.load_library()
+    iters = sqp_cfg.max_iters
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
+    Xo, Uo, rho_out = empty(N, 12, B), empty(N - 1, 6, B), empty(B)
+    alphas, steps = empty(iters, B), empty(iters, B)
+    scratch = empty(lib.indy7_sqp_scratch_floats(N, B))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.indy7_sqp_solve(
+            _abi.model_consts(sm),
+            _abi.solve_params(cost_cfg, sqp_cfg, dt, N, B, wrench is not None),
+            _ptr(xs), _ptr(goals), _ptr(X), _ptr(U),
+            None if wrench is None else _ptr(wrench), _ptr(rho),
+            _ptr(Xo), _ptr(Uo), _ptr(rho_out), _ptr(alphas), _ptr(steps),
+            _ptr(scratch), ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"SQP kernel launch failed: CUDA error {rc}")
+    sqp_solve.launches += 1
+    return Xo, Uo, rho_out, alphas, steps
+
+
+sqp_solve.launches = 0  # kernel launches (CPU calls do not count)

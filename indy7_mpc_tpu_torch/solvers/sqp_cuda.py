@@ -1,0 +1,67 @@
+"""B-major batched SQP solve on kernel K1 (port of ``solvers/sqp_pallas.py``).
+
+Same array contracts as the TPU package's ``sqp_pallas.batch_solve``.  On
+CUDA the kernel runs in float32; on the CPU the wrapper's plain version
+runs in the inputs' dtype.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config import CostConfig, SQPConfig
+from ..models.robot import RobotModel
+from ..ops import lane_rbd as LR
+from ..ops.kernels.sqp_kernel import sqp_solve
+from .sqp import SolverState, SQPResult, SQPStats
+
+
+def batch_solve(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    dt: float,
+    xs_b,
+    goals_b,
+    X_b,
+    U_b,
+    state: Optional[SolverState] = None,
+    wrench_world_batch=None,
+) -> SQPResult:
+    """Lane-batched SQP solve on the SQP kernel.
+
+    xs_b: (B, 12), goals_b: (B, N, 3), X_b: (B, N, 12), U_b: (B, N-1, 6),
+    wrench_world_batch: (B, 6) or None.
+
+    ``stats.iterations`` counts ACCEPTED steps (alpha > 0), as the TPU
+    package's ``sqp_pallas.batch_solve`` does: a rejected iteration and an
+    iteration after the step-norm exit both log alpha = 0 and are not
+    told apart.
+    """
+    device = X_b.device
+    dtype = torch.float32 if device.type == "cuda" else X_b.dtype
+    sm = LR.static_model(model.to(dtype=dtype))
+
+    def lane_major(t, perm):
+        return t.to(dtype).permute(*perm).contiguous()
+
+    rho = None if state is None else state.rho.to(dtype).contiguous()
+    X, U, rho, alphas, steps = sqp_solve(
+        sm, cost_cfg, sqp_cfg, dt,
+        lane_major(xs_b, (1, 0)), lane_major(goals_b, (1, 2, 0)),
+        lane_major(X_b, (1, 2, 0)), lane_major(U_b, (1, 2, 0)),
+        wrench=None if wrench_world_batch is None
+        else lane_major(wrench_world_batch, (1, 0)),
+        rho=rho,
+    )
+    return SQPResult(
+        X=X.permute(2, 0, 1),
+        U=U.permute(2, 0, 1),
+        state=SolverState(rho=rho),
+        stats=SQPStats(
+            iterations=(alphas > 0).sum(0).to(torch.int32),
+            step_sizes=steps.T,
+            alphas=alphas.T,
+        ),
+    )

@@ -1,0 +1,160 @@
+"""The port's CUDA kernels on the card against their plain versions (f32).
+
+Every test here needs an NVIDIA GPU with CUDA and nvcc, and skips without
+one.  The file imports no JAX, so it runs where JAX is not installed too;
+tests/conftest.py imports JAX, so run it without the conftest there:
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+
+Tolerances are those of the TPU package's own kernel checks: the scaled
+6e-3 of tests/test_pallas_kernel.py for the SQP solve, and the epilogue
+tolerances of tests/test_fused_tick.py for the tick kernel.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from indy7_mpc_tpu_torch.config import (
+    PERTURBED_PLANT, CostConfig, MPCConfig, PlantConfig, SampleConfig, SQPConfig,
+)
+from indy7_mpc_tpu_torch.models import indy7
+from indy7_mpc_tpu_torch.mpc import TickDraws, init_loop_carry, reference, run_sampled_mpc
+from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import (
+    tick_epilogue, tick_epilogue_plain,
+)
+from indy7_mpc_tpu_torch.sim.plant import perturb_model
+from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
+
+pytestmark = pytest.mark.gpu
+
+B, N, DT = 8, 8, 0.01
+COST, SQP = CostConfig(), SQPConfig(max_iters=2)
+INIT_Q = [1.5799, 0.0631, -1.1807, 1.0927, -0.6255, -0.0190]
+F_TRUE0 = [-60.0, 20.0, -40.0, 0.0, 0.0, 0.0]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _f32(a, device):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("case", ["wrench", "no_wrench", "barrier"])
+def test_sqp_kernel_matches_plain(cuda, case):
+    rng = np.random.default_rng(11)
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    w = rng.normal(size=(6, B)) * 8
+    w[3:] = 0.0
+    xs, goals, X, U = (
+        rng.normal(size=shape) * scale
+        for shape, scale in (((12, B), 0.05), ((N, 3, B), 0.3), ((N, 12, B), 0.05),
+                             ((N - 1, 6, B), 0.5))
+    )
+    if case == "barrier":  # joint 1 in or past its joint-range barrier band
+        X[:, 1] += 2.95 + 0.05 * np.arange(B)
+        xs = X[0].copy()
+    args = [_f32(a, cuda) for a in (xs, goals, X, U)]
+    kw = dict(wrench=None if case == "no_wrench" else _f32(w, cuda))
+    before = sqp_solve.launches
+    k = sqp_solve(sm, COST, SQP, DT, *args, **kw)
+    assert sqp_solve.launches == before + 1
+    p = solve_lane_major(sm, COST, SQP, DT, *args, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(k[3].cpu().numpy(), p[3].cpu().numpy())
+    np.testing.assert_allclose(k[2].cpu().numpy(), p[2].cpu().numpy(), rtol=1e-6)
+    for a, b in ((k[0], p[0]), (k[1], p[1])):
+        # Per lane, scaled by max(1, max |value|) as the TPU kernel's check does.
+        scale = b.abs().amax(dim=(0, 1)).clamp(min=1.0)
+        np.testing.assert_allclose((a / scale).cpu().numpy(), (b / scale).cpu().numpy(), atol=6e-3)
+
+
+TICK_CASES = {
+    "nominal": (PlantConfig(), ()),
+    "perturbed": (PERTURBED_PLANT, ()),
+    "nan_consensus": (PERTURBED_PLANT, (3, 5)),
+    "saturated": (dataclasses.replace(PERTURBED_PLANT, velocity_saturation=True), ()),
+}
+
+
+@pytest.mark.parametrize("case", list(TICK_CASES))
+def test_tick_kernel_matches_plain(cuda, case):
+    cfg, nan_lanes = TICK_CASES[case]
+    model = indy7(torch.float32, cuda)
+    smc, smp = LR.static_model(model), LR.static_model(perturb_model(model, cfg))
+    rng = np.random.default_rng(4)
+    x_cur = np.r_[INIT_Q, 0.1 * np.ones(6)]
+    if case == "saturated":  # past the velocity limits, joint 5 near its stop
+        x_cur = np.r_[INIT_Q[:5], 3.7, 3.0 * np.ones(6)]
+    f_batch = rng.normal(size=(6, B)) * 20.0
+    f_batch[3:] = 0.0
+    f_batch[:, 0] = 0.0
+    for lane in nan_lanes:
+        f_batch[0, lane] = np.nan
+    noise = cfg.torque_noise_std * rng.normal(size=(cfg.substeps, 6))
+    args = [_f32(a, cuda) for a in (
+        x_cur, x_cur + 0.01 * rng.normal(size=12), 5.0 * rng.normal(size=6), f_batch,
+        3.0 * rng.normal(size=(6, B)), F_TRUE0,
+    )] + [_f32(noise, cuda) if cfg.torque_noise_std else None]
+    before = tick_epilogue.launches
+    k = tick_epilogue(smc, smp, cfg, DT, *args)
+    assert tick_epilogue.launches == before + 1
+    p = tick_epilogue_plain(smc, smp, cfg, DT, *args)
+    torch.cuda.synchronize()
+    assert int(k.best) == int(p.best)
+    if nan_lanes:  # a NaN consensus error wins, first NaN first
+        assert int(k.best) == nan_lanes[0]
+    np.testing.assert_allclose(k.err.cpu().numpy(), p.err.cpu().numpy(), rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(k.x_next.cpu().numpy(), p.x_next.cpu().numpy(), atol=2e-3)
+    np.testing.assert_array_equal(k.u.cpu().numpy(), p.u.cpu().numpy())
+    np.testing.assert_array_equal(k.f_est.cpu().numpy(), p.f_est.cpu().numpy())
+    np.testing.assert_allclose(k.eep.cpu().numpy(), p.eep.cpu().numpy(), atol=1e-5)
+
+
+def test_closed_loop_on_the_card_follows_the_cpu_loop(cuda):
+    """run_sampled_mpc on the card (both kernels, f32) against the same
+    loop on the CPU (plain versions, f64) with the same draws: one kernel
+    launch of each per tick, the same winners, states within f32 reach."""
+    ticks = 6
+    ref = reference.with_padding(
+        reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT,
+                          cycles=1), 200)
+    rng = np.random.default_rng(0)
+    f_batch0 = rng.normal(size=(B, 6)) * 20.0
+    f_batch0[:, 3:] = 0.0
+    f_batch0[0] = 0.0
+    draws = [
+        (rng.normal(size=(B, 6)), rng.normal(size=3), rng.normal(size=(PERTURBED_PLANT.substeps, 6)))
+        for _ in range(ticks)
+    ]
+    runs = {}
+    for device, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float64)):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        x0 = t(np.r_[INIT_Q, np.zeros(6)])
+        gen = torch.Generator(device=device).manual_seed(0)
+        carry0 = init_loop_carry(indy7(dtype, device), MPCConfig(N=N, dt=DT),
+                                 SampleConfig(batch_size=B), x0, F_TRUE0, gen)._replace(f_batch=t(f_batch0))
+        before = (sqp_solve.launches, tick_epilogue.launches)
+        _, trace = run_sampled_mpc(
+            indy7(dtype, device), COST, SQP, MPCConfig(N=N, dt=DT), SampleConfig(batch_size=B),
+            x0, ref, ticks, F_TRUE0, gen, plant_cfg=PERTURBED_PLANT, carry0=carry0,
+            draws=[TickDraws(*(t(d) for d in dr)) for dr in draws],
+        )
+        launched = (sqp_solve.launches - before[0], tick_epilogue.launches - before[1])
+        assert launched == ((ticks, ticks) if device.type == "cuda" else (0, 0))
+        runs[device.type] = {f: v.cpu().double().numpy() for f, v in trace._asdict().items()}
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert all(np.isfinite(v).all() for v in gpu.values())
+    np.testing.assert_array_equal(gpu["best_idx"], cpu["best_idx"])
+    np.testing.assert_allclose(gpu["x"], cpu["x"], atol=5e-3)
+    np.testing.assert_allclose(gpu["tracking_error"], cpu["tracking_error"], atol=1e-3)

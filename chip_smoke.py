@@ -16,7 +16,28 @@ Phases, each fatal on failure (exit code 1, no result line):
   5. the main path: run_sampled_mpc on the card at the fig-8 configuration
      (B=64, N=64, 2 SQP iterations, perturbed plant) for 500 ticks; the
      trace must be finite, the mean tracking error of the last 100 ticks
-     below 0.2 m, and each kernel launched once per tick.
+     below 0.2 m, and each kernel launched once per tick;
+  6. the runtime in process: SampledController and InProcessPlant(
+     PERTURBED_PLANT) both on the card, run_control_loop without the wall
+     clock, at the recorded host-dispatch configuration (B=64, N=64, 2 SQP
+     iterations, fig-8 of 10 cycles after 200 rows of padding, true wrench
+     [-60, 20, -40] N) for 500 ticks: K1 once per tick plus the warm-up, K2
+     twice per tick (consensus, plant step) plus the warm-up, everything
+     recorded finite, last-100 tracking under 0.2 m, wrench-estimate error
+     p50 under 50 N; then K2 as the consensus (B=64) and as the plant step
+     (B=1) against its plain version at phase 4's tolerances;
+  7. the runtime over UDP: the native plant built from native/plant by the
+     port (sim/native.py), plant_node with the perturbed plant's flags at
+     --realtime-scale 4, its first state awaited, the same controller at
+     25 Hz of wall clock (100 Hz of plant time) for 300 ticks: at least 250
+     ticks recorded, finite, last-100 tracking under 0.3 m, wrench-estimate
+     error p50 under 50 N; the plant process is killed at the end;
+  8. point to goal: K1 at B=1 (N=32, 3 SQP iterations) against its plain
+     version, then run_mpc for 300 steps with the goal chain of
+     examples/point_to_goal.py: K1 once per step plus the warm-up solve,
+     K2 (the plant step) once per step, at least one goal switch, alive at
+     the end, states finite; then K2 as that plant step (B=1) against its
+     plain version at phase 4's tolerances.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -30,6 +51,8 @@ import time
 B, N, DT, SQP_ITERS, TICKS = 64, 64, 0.01, 2, 500
 INIT_Q = [1.5799, 0.0631, -1.1807, 1.0927, -0.6255, -0.0190]
 F_TRUE0 = [-60.0, 20.0, -40.0, 0.0, 0.0, 0.0]
+UDP_TICKS, REALTIME_SCALE, UDP_PORTS = 300, 4, (7611, 7610)  # plant, controller
+P2G_N, P2G_ITERS, P2G_STEPS = 32, 3, 300
 
 
 class SmokeFailure(Exception):
@@ -141,11 +164,35 @@ def phase_tick(dev):
         f32(3.0 * rng.normal(size=(6, B))), f32(F_TRUE0),
         f32(cfg.torque_noise_std * rng.normal(size=(cfg.substeps, 6))),
     )
+    best, err = check_k2_call("K2", smc, smp, cfg, args)
+    ms = cuda_ms(lambda: tick_epilogue(smc, smp, cfg, DT, *args), 50)
+    plain_ms = cuda_ms(lambda: tick_epilogue_plain(smc, smp, cfg, DT, *args), 3)
+    print(f"K2 tick_epilogue B={B}: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+          f"max abs err {err:.3e}, winner {best}", flush=True)
+    return {"name": "tick_epilogue", "route": "cuda",
+            "source": "indy7_mpc_tpu_torch/csrc/tick_kernel.cu",
+            "replaces": "indy7_mpc_tpu/ops/pallas/tick_kernel.py:140",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_k2_call(label, smc, smp, cfg, args):
+    """K2 and its plain version on the same arguments (those after
+    ``(smc, smp, cfg, dt)``) at phase 4's tolerances: winner equal, err
+    rtol 1e-3 / atol 1e-5, x_next atol 2e-3, u and f_est to rtol 1e-7, eep
+    atol 1e-5.  Returns (winner, max abs error)."""
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch.config import PlantConfig
+    from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import (
+        tick_epilogue, tick_epilogue_plain,
+    )
+
     k = tick_epilogue(smc, smp, cfg, DT, *args)
-    p = tick_epilogue_plain(smc, smp, cfg, DT, *args)
+    p = tick_epilogue_plain(smc, smp, cfg or PlantConfig(), DT, *args)
     torch.cuda.synchronize()
     np_ = lambda t: t.cpu().numpy()
-    check(int(k.best) == int(p.best), f"K2 winner {int(k.best)} != plain {int(p.best)}")
+    check(int(k.best) == int(p.best), f"{label}: winner {int(k.best)} != plain {int(p.best)}")
     try:
         np.testing.assert_allclose(np_(k.err), np_(p.err), rtol=1e-3, atol=1e-5)
         np.testing.assert_allclose(np_(k.x_next), np_(p.x_next), atol=2e-3)
@@ -153,17 +200,12 @@ def phase_tick(dev):
         np.testing.assert_allclose(np_(k.f_est), np_(p.f_est))
         np.testing.assert_allclose(np_(k.eep), np_(p.eep), atol=1e-5)
     except AssertionError as e:
-        raise SmokeFailure(f"K2 disagrees with its plain version: {e}")
+        raise SmokeFailure(f"{label}: disagrees with its plain version: {e}")
+    for t in (k.err, k.x_next, k.eep):
+        check(bool(torch.isfinite(t).all()), f"{label}: output not finite")
     err = max((a - b).abs().max().item() for a, b in zip(
         (k.err, k.x_next, k.u, k.eep, k.f_est), (p.err, p.x_next, p.u, p.eep, p.f_est)))
-    ms = cuda_ms(lambda: tick_epilogue(smc, smp, cfg, DT, *args), 50)
-    plain_ms = cuda_ms(lambda: tick_epilogue_plain(smc, smp, cfg, DT, *args), 3)
-    print(f"K2 tick_epilogue B={B}: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
-          f"max abs err {err:.3e}, winner {int(k.best)}", flush=True)
-    return {"name": "tick_epilogue", "route": "cuda",
-            "source": "indy7_mpc_tpu_torch/csrc/tick_kernel.cu",
-            "replaces": "indy7_mpc_tpu/ops/pallas/tick_kernel.py:140",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return int(k.best), err
 
 
 def phase_main_path(dev):
@@ -175,8 +217,6 @@ def phase_main_path(dev):
     )
     from indy7_mpc_tpu_torch.models import indy7
     from indy7_mpc_tpu_torch.mpc import reference, run_sampled_mpc
-    from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
-    from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import tick_epilogue
 
     ref = reference.with_padding(
         reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45],
@@ -185,8 +225,7 @@ def phase_main_path(dev):
     x0 = torch.zeros(12, dtype=torch.float32, device=dev)
     x0[:6] = torch.tensor(INIT_Q)
     gen = torch.Generator(device=dev).manual_seed(42)
-    sqp_solve.launches = 0
-    tick_epilogue.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, trace = run_sampled_mpc(
@@ -197,7 +236,7 @@ def phase_main_path(dev):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"sqp_solve": sqp_solve.launches, "tick_epilogue": tick_epilogue.launches}
+    launches = read_counts()
     for name, n in launches.items():
         check(n == TICKS, f"{name} launched {n} times in {TICKS} ticks")
     for name, v in trace._asdict().items():
@@ -212,6 +251,230 @@ def phase_main_path(dev):
           f"p95 {np.percentile(te, 95):.4f} m, last-100 mean {tail:.4f} m", flush=True)
     check(tail < 0.2, f"last-100 tracking error {tail:.4f} m >= 0.2 m")
     return launches
+
+
+def reset_counts():
+    from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+    from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import tick_epilogue
+
+    sqp_solve.launches = 0
+    tick_epilogue.launches = 0
+
+
+def read_counts():
+    from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+    from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import tick_epilogue
+
+    return {"sqp_solve": sqp_solve.launches, "tick_epilogue": tick_epilogue.launches}
+
+
+def check_recording(rec, name, ticks_min, tail_max, f_err_p50_max=50.0):
+    """Every recorded array finite, enough ticks, the last-100 tracking
+    under ``tail_max`` and the wrench-estimate error's p50 under
+    ``f_err_p50_max`` N (a plant that never got the [-60, 20, -40] N wrench
+    shows about its 74.8 N); prints the tick times, tracking and wrench
+    error."""
+    import numpy as np
+
+    arrays = {k: rec._fetch(k) for k in rec.ARRAYS + rec.EXTRA_ARRAYS}
+    te, st = arrays["tracking_errors"], arrays["solve_times"]
+    check(te.shape[0] >= ticks_min, f"{name}: {te.shape[0]} ticks recorded, want {ticks_min}")
+    for k, a in arrays.items():
+        check(a.shape[0] == te.shape[0], f"{name}: {k} has {a.shape[0]} rows")
+        check(bool(np.isfinite(a).all()), f"{name}: recorded {k} not finite")
+    tail = te[-100:].mean()
+    f_err = np.linalg.norm(arrays["f_est"][:, :3] - arrays["f_true"][:, :3], axis=1)
+    print(f"{name}: {te.shape[0]} ticks; controller tick (host clock, us) "
+          f"p50 {np.percentile(st, 50):.1f}, p95 {np.percentile(st, 95):.1f}, "
+          f"max {st.max():.1f}; tracking error mean {te.mean():.4f} m, "
+          f"p50 {np.percentile(te, 50):.4f} m, p95 {np.percentile(te, 95):.4f} m, "
+          f"last-100 mean {tail:.4f} m; wrench estimate error p50 "
+          f"{np.percentile(f_err, 50):.2f} N, p95 {np.percentile(f_err, 95):.2f} N",
+          flush=True)
+    check(tail < tail_max, f"{name}: last-100 tracking error {tail:.4f} m >= {tail_max} m")
+    f_p50 = np.percentile(f_err, 50)
+    check(f_p50 < f_err_p50_max,
+          f"{name}: wrench estimate error p50 {f_p50:.2f} N >= {f_err_p50_max} N")
+
+
+def phase_runtime_inprocess(dev):
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.config import PERTURBED_PLANT
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.mpc.fused_tick import consensus_args
+    from indy7_mpc_tpu_torch.runtime import InProcessPlant, RunRecorder, run_control_loop
+    from indy7_mpc_tpu_torch.sim.kernel_plant import kernel_plant_args
+
+    reset_counts()
+    t0 = time.perf_counter()
+    ctl = measure.runtime_controller(dev)
+    init_s = time.perf_counter() - t0
+    x0 = torch.zeros(12, dtype=torch.float32, device=dev)
+    x0[:6] = torch.tensor(INIT_Q)
+    # The plant lives on the card too: one K2 launch per command.
+    plant = InProcessPlant(indy7(torch.float32), x0, DT, plant_cfg=PERTURBED_PLANT)
+    rec = RunRecorder(save_interval=1e9)  # kept in memory, never saved
+    t0 = time.perf_counter()
+    rec = run_control_loop(ctl, plant, duration=1e9, rate_hz=100.0, recorder=rec,
+                           walk_disturbance=True, realtime=False, max_ticks=TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"runtime in process: controller built (warm-up tick) in {init_s:.1f} s; "
+          f"{TICKS} ticks in {wall:.1f} s with the plant on the card; "
+          f"launches {launches}", flush=True)
+    want = {"sqp_solve": TICKS + 1, "tick_epilogue": 2 * TICKS + 1}
+    check(launches == want, f"runtime in process: launches {launches} in {TICKS} ticks "
+          f"+ warm-up, want {want} (K2 is the consensus and the plant step)")
+    check_recording(rec, "runtime in process", TICKS, 0.2)
+
+    # K2's two calls of this phase against the plain version, on the run's
+    # last state: the controller's consensus (B=64, its own model as the
+    # plant, no plant config, zero true wrench) and the plant's step (B=1,
+    # the perturbed plant with its wrench and actuation noise).
+    (smc,) = ctl._tick.sampled.static_models(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    U0_T = 3.0 * torch.randn((6, ctl.f_batch.shape[0]), generator=gen, device=dev)
+    best, c_err = check_k2_call("K2 as the consensus", smc, smc, None, consensus_args(
+        plant.x, ctl.x_last, ctl.u_last, ctl.f_batch.T.contiguous(), U0_T))
+    noise = PERTURBED_PLANT.torque_noise_std * torch.randn(
+        (PERTURBED_PLANT.substeps, 6), generator=gen, device=dev)
+    _, p_err = check_k2_call("K2 as the plant step", plant._sm_nominal, plant._sm,
+                             PERTURBED_PLANT, kernel_plant_args(
+                                 plant.x, ctl.u_last, plant.wrench, noise))
+    print(f"K2 as the consensus B={U0_T.shape[1]}: winner {best}, max abs err {c_err:.3e}; "
+          f"as the perturbed plant's step B=1: max abs err {p_err:.3e}", flush=True)
+    return launches
+
+
+def phase_runtime_udp(dev):
+    import numpy as np
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.runtime import RunRecorder, UdpTransport, run_control_loop
+    from indy7_mpc_tpu_torch.sim import native
+
+    t0 = time.perf_counter()
+    node = native.plant_node_path()
+    print(f"native plant built in {time.perf_counter() - t0:.1f} s: {node}", flush=True)
+    reset_counts()
+    ctl = measure.runtime_controller(dev)
+    plant_port, ctl_port = UDP_PORTS
+    # The flags examples/record_runs.py derives from PERTURBED_PLANT.
+    proc = subprocess.Popen(
+        [node, str(DT / 5), "5", "--perturb", "0.04", "7", "--friction", "0.05", "0.1",
+         "--noise", "0.1", "--realtime-scale", str(REALTIME_SCALE),
+         "--ports", str(plant_port), str(ctl_port)],
+        stdout=subprocess.DEVNULL,
+    )
+    transport = None
+    try:
+        transport = UdpTransport(plant_addr=("127.0.0.1", plant_port),
+                                 listen_addr=("127.0.0.1", ctl_port))
+        # The plant's first state: it is bound, so the loop's first wrench
+        # reaches it.
+        transport.wait_for_state(timeout=30.0)
+        rec = RunRecorder(save_interval=1e9)
+        t0 = time.perf_counter()
+        rec = run_control_loop(ctl, transport, duration=600, rate_hz=100.0 / REALTIME_SCALE,
+                               recorder=rec, walk_disturbance=True, realtime=True,
+                               max_ticks=UDP_TICKS)
+        wall = time.perf_counter() - t0
+        check(proc.poll() is None, f"plant_node exited with {proc.returncode}")
+    finally:
+        if transport is not None:
+            transport.close()
+        proc.kill()
+        proc.wait()
+    launches = read_counts()
+    ticks = len(rec._data["dts"])
+    for name, n in launches.items():
+        check(n == ticks + 1, f"runtime over UDP: {name} launched {n} times in "
+              f"{ticks} ticks + warm-up")
+    dts = np.asarray(rec._data["dts"])
+    print(f"runtime over UDP: {ticks} ticks in {wall:.1f} s of wall clock; control "
+          f"period in plant time mean {dts.mean() * 1e3:.2f} ms, p50 "
+          f"{np.percentile(dts, 50) * 1e3:.2f} ms, max {dts.max() * 1e3:.2f} ms; "
+          f"launches {launches}", flush=True)
+    check_recording(rec, "runtime over UDP", 250, 0.3)
+    return launches
+
+
+def phase_point_to_goal(dev):
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch.config import CostConfig, MPCConfig, PlantConfig, SQPConfig
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.mpc import run_mpc
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+    from indy7_mpc_tpu_torch.sim.kernel_plant import kernel_plant_args
+    from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
+
+    cost, sqp = CostConfig(), SQPConfig(max_iters=P2G_ITERS)
+    model = indy7(torch.float32, dev)
+    sm = LR.static_model(model)
+
+    # K1 at the single-lane shape against its plain version.
+    rng = np.random.default_rng(12)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    args = (f32(np.r_[INIT_Q, np.zeros(6)][:, None]),
+            f32(np.tile([[0.3], [0.3], [0.6]], (P2G_N, 1, 1))),
+            f32(rng.normal(size=(P2G_N, 12, 1)) * 0.05),
+            f32(rng.normal(size=(P2G_N - 1, 6, 1)) * 0.5))
+    k = sqp_solve(sm, cost, sqp, DT, *args)
+    p = solve_lane_major(sm, cost, sqp, DT, *args)
+    check(bool((k[3] == p[3]).all()), f"K1 B=1 alphas {k[3].tolist()} != plain {p[3].tolist()}")
+    err = 0.0
+    for a, b in ((k[0], p[0]), (k[1], p[1])):
+        check(bool(torch.isfinite(a).all()), "K1 B=1 output not finite")
+        scaled = ((a - b).abs() / b.abs().max().clamp(min=1.0)).max().item()
+        check(scaled <= 6e-3, f"K1 B=1 X/U scaled error {scaled:.3e} > 6e-3")
+        err = max(err, (a - b).abs().max().item())
+    ms = cuda_ms(lambda: sqp_solve(sm, cost, sqp, DT, *args), 20)
+    plain_ms = cuda_ms(lambda: solve_lane_major(sm, cost, sqp, DT, *args), 2)
+    print(f"K1 sqp_solve B=1 N={P2G_N} {P2G_ITERS} iterations: kernel {ms * 1e3:.1f} us, "
+          f"plain {plain_ms * 1e3:.1f} us, max |X,U err| {err:.3e}", flush=True)
+
+    x0 = torch.zeros(12, dtype=torch.float32, device=dev)
+    ee0 = torch.stack(LR.ee_pos(sm, list(x0[:6]))).cpu().numpy()
+    goals = np.stack([ee0 + [0.10, -0.10, -0.10], ee0 + [-0.15, 0.05, -0.20],
+                      ee0 + [0.05, 0.15, -0.05]])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, trace = run_mpc(model, cost, sqp, MPCConfig(N=P2G_N, dt=DT), x0, goals, P2G_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = {"sqp_solve": P2G_STEPS + 1, "tick_epilogue": P2G_STEPS}
+    check(launches == want, f"run_mpc launches {launches}, want {want}")
+    for name, v in trace._asdict().items():
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"run_mpc trace {name} not finite")
+    gidx = trace.goal_idx.cpu().numpy()
+    switches = int((np.diff(gidx) != 0).sum())
+    d = trace.goal_dist.cpu().numpy()
+    print(f"run_mpc N={P2G_N} {P2G_ITERS} iterations, {P2G_STEPS} steps: "
+          f"{wall / P2G_STEPS * 1e3:.2f} ms/step (host clock); goal distance first "
+          f"{d[0]:.4f} m, min {d.min():.4f} m, last {d[-1]:.4f} m; {switches} goal "
+          f"switches; alive {bool(final.alive)}; launches {launches}", flush=True)
+    check(switches >= 1, "run_mpc: no goal switch")
+    check(bool(final.alive), "run_mpc: diverged (alive is false)")
+
+    # K2 as run_mpc's plant step (B=1, the nominal one-substep plant, no
+    # wrench) against its plain version, from the run's last state and
+    # control.
+    cfg = PlantConfig(substeps=MPCConfig(N=P2G_N, dt=DT).sim_substeps)
+    _, k2_err = check_k2_call("K2 as run_mpc's plant step", sm, sm, cfg,
+                              kernel_plant_args(final.x, trace.u[-1]))
+    print(f"K2 as run_mpc's plant step B=1: max abs err {k2_err:.3e}", flush=True)
+    return launches, {"B": 1, "N": P2G_N, "iters": P2G_ITERS, "max_abs_err": err,
+                      "ms": ms, "plain_ms": plain_ms}
 
 
 def main():
@@ -242,9 +505,14 @@ def main():
             print("ptxas:", line.strip(), flush=True)
 
     kernels = [phase_sqp(dev), phase_tick(dev)]
-    launches = phase_main_path(dev)
+    phases = {"run_sampled_mpc": phase_main_path(dev),
+              "runtime_in_process": phase_runtime_inprocess(dev),
+              "runtime_udp": phase_runtime_udp(dev)}
+    phases["run_mpc"], single_lane = phase_point_to_goal(dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = phases["run_sampled_mpc"][k["name"]]
+        k["launches_by_phase"] = {p: n[k["name"]] for p, n in phases.items()}
+    kernels[0]["single_lane"] = single_lane
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,12 @@
 """indy7_mpc_tpu_torch: the PyTorch/CUDA port of indy7_mpc_tpu.
 
-The sampled-MPC closed loop (batched SQP solves under wrench hypotheses,
-consensus, ground-truth plant) on PyTorch tensors, with the two hot
-kernels hand-written in CUDA C++ for Hopper (``csrc/``):
+On PyTorch tensors: the sampled-MPC closed loop (batched SQP solves under
+wrench hypotheses, consensus, ground-truth plant; ``mpc.run_sampled_mpc``),
+the host-driven runtime around its controller tick (``runtime``:
+``SampledController`` over a UDP link to the native C++ plant, ``sim/native``,
+or against an in-process plant, with stats recording and checkpoints),
+and the single-lane loops ``mpc.run_mpc`` and ``mpc.run_tracking_mpc``.
+The two hot kernels are hand-written in CUDA C++ for Hopper (``csrc/``):
 
   * ``ops/kernels/sqp_kernel.py`` — the batched SQP solve (K1);
   * ``ops/kernels/tick_kernel.py`` — consensus, argmin, plant and FK (K2).

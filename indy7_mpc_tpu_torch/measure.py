@@ -1,8 +1,9 @@
-"""Time the port's kernels and closed-loop tick on one CUDA card.
+"""Time the port's kernels and closed-loop tick on one CUDA card, or record
+a long host-dispatch run.
 
-Usage: python3 -m indy7_mpc_tpu_torch.measure [--out PATH]
+Usage: python3 -m indy7_mpc_tpu_torch.measure [--out PATH] [--runtime [--stats-dir DIR]]
 
-It prints, and writes as JSON to ``--out``:
+Without ``--runtime`` it prints, and writes as JSON to ``--out``:
   * the card's name and power limit (nvidia-smi);
   * kernel K1 (``sqp_solve``) alone: CUDA-event ms per launch and
     lane-solves/s over a sweep of lane counts B, horizons N and SQP
@@ -11,7 +12,20 @@ It prints, and writes as JSON to ``--out``:
     iterations, perturbed plant): ms per tick by CUDA events and by the
     host clock over steady ticks, then a ``torch.profiler`` window whose
     device time per kernel, divided by the window's wall time, gives the
-    device's busy share.
+    device's busy share;
+  * the runtime's controller tick (``SampledController.on_state`` at the
+    same sizes, without a plant): its host-clock ``solve_time_us`` and a
+    profiler window.
+
+With ``--runtime`` it instead records the host-dispatch run of the TPU
+package's ``stats_tpu/perturbed_b64`` golden (examples/record_runs.py:
+B=64, N=64, 2 SQP iterations, fig-8 of 10 cycles after 200 rows of
+padding, true wrench [-60, 20, -40] N, 3,500 ticks): ``SampledController``
+against ``InProcessPlant(PERTURBED_PLANT)``, both on the card, through
+``run_control_loop`` without the wall clock.  ``RunRecorder``
+writes the run into ``<--stats-dir>/perturbed_b64/`` (by default
+``build/stats_torch/perturbed_b64/``), and
+``tools/analyze_stats.py`` prints it beside the golden.
 
 It checks nothing; ``chip_smoke.py`` is the correctness run.  Exits 1
 without a CUDA device.
@@ -20,9 +34,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,13 +48,17 @@ from .models import indy7
 from .mpc import init_loop_carry, make_fused_loop_tick, reference
 from .ops import lane_rbd as LR
 from .ops.kernels.sqp_kernel import sqp_solve
+from .runtime import InProcessPlant, RunRecorder, SampledController, run_control_loop
 
+ROOT = Path(__file__).resolve().parents[1]
 DT = 0.01
 INIT_Q = [1.5799, 0.0631, -1.1807, 1.0927, -0.6255, -0.0190]
 F_TRUE0 = [-60.0, 20.0, -40.0, 0.0, 0.0, 0.0]
 # (B, N, SQP iterations); the first is repeated last to show drift.
+# (1, 32, 3) is the single-lane solve of run_mpc at the point-to-goal
+# configuration.
 K1_SWEEP = [(64, 64, 2), (64, 64, 1), (64, 32, 2), (256, 64, 2),
-            (1024, 64, 2), (4096, 64, 2), (64, 64, 2)]
+            (1024, 64, 2), (4096, 64, 2), (1, 32, 3), (64, 64, 2)]
 
 
 def _events_ms(fn, reps):
@@ -108,37 +128,121 @@ def tick_timing(dev, warm=20, steady=50, profiled=20):
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / steady
 
+    prof = _profile(run, profiled)
+    print(f"tick B={B} N={N} perturbed: {event_ms:.4f} ms/tick (CUDA events, {steady} ticks), "
+          f"{host_ms:.4f} ms/tick (host clock); {_profile_line(prof)}", flush=True)
+    return {"event_ms_per_tick": event_ms, "host_ms_per_tick": host_ms, **prof}
+
+
+def _profile(run, n):
+    """Device time per kernel over ``run(n)`` under ``torch.profiler``; the
+    device time over the window's wall time is the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(profiled)
+        run(n)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] = (evt.self_device_time_total / 1e3 / profiled, evt.count / profiled)
+            kernels[evt.key] = (evt.self_device_time_total / 1e3 / n, evt.count / n)
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    print(f"tick B={B} N={N} perturbed: {event_ms:.4f} ms/tick (CUDA events, {steady} ticks), "
-          f"{host_ms:.4f} ms/tick (host clock); profiler: {busy_ms:.4f} ms device time "
-          f"in {wall_ms / profiled:.4f} ms wall per tick, busy {100 * busy_ms * profiled / wall_ms:.2f}%",
-          flush=True)
-    for name, (ms, count) in top[:8]:
-        print(f"  {ms:.4f} ms/tick  x{count:g}  {name[:100]}", flush=True)
-    return {"event_ms_per_tick": event_ms, "host_ms_per_tick": host_ms,
-            "profiled_ticks": profiled, "prof_wall_ms_per_tick": wall_ms / profiled,
-            "device_ms_per_tick": busy_ms, "busy_share": busy_ms * profiled / wall_ms,
+    return {"profiled_ticks": n, "prof_wall_ms_per_tick": wall_ms / n,
+            "device_ms_per_tick": busy_ms, "busy_share": busy_ms * n / wall_ms,
             "kernels_ms_per_tick": [{"name": k, "ms": ms, "launches_per_tick": c}
                                     for k, (ms, c) in top],
             "kernel_launches_per_tick": sum(c for _, c in kernels.values())}
 
 
+def _profile_line(prof):
+    lines = [f"profiler: {prof['device_ms_per_tick']:.4f} ms device time in "
+             f"{prof['prof_wall_ms_per_tick']:.4f} ms wall per tick, busy "
+             f"{100 * prof['busy_share']:.2f}%, "
+             f"{prof['kernel_launches_per_tick']:g} launches per tick"]
+    for k in prof["kernels_ms_per_tick"][:8]:
+        lines.append(f"  {k['ms']:.4f} ms/tick  x{k['launches_per_tick']:g}  {k['name'][:100]}")
+    return "\n".join(lines)
+
+
+def runtime_controller(dev):
+    """The controller of the host-dispatch goldens (examples/record_runs.py:
+    B=64, N=64, 2 SQP iterations, fig-8 of 10 cycles after 200 rows of
+    padding, true wrench [-60, 20, -40] N) on ``dev``; constructing it runs
+    the warm-up tick."""
+    ref = reference.with_padding(
+        reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45],
+                          period=10, dt=DT, cycles=10), 200)
+    return SampledController(
+        indy7(torch.float32), CostConfig(), SQPConfig(max_iters=2),
+        MPCConfig(N=64, dt=DT), SampleConfig(batch_size=64, f_ext_std=20.0,
+                                             f_ext_resample_std=1.0),
+        ref, f_ext_actual=F_TRUE0[:3], device=dev,
+    )
+
+
+def controller_timing(dev, warm=10, steady=50, profiled=20):
+    """``SampledController.on_state`` alone (no plant: the same host state
+    every tick): its own host-clock ``solve_time_us`` and a profile."""
+    ctl = runtime_controller(dev)
+    x = torch.zeros(12)
+    x[:6] = torch.tensor(INIT_Q)
+    times = []
+
+    def run(n):
+        for _ in range(n):
+            times.append(ctl.on_state(x, DT)[1]["solve_time_us"])
+
+    run(warm)
+    del times[:]
+    run(steady)
+    us = np.asarray(times)
+    prof = _profile(run, profiled)
+    print(f"controller tick B=64 N=64: solve_time_us p50 {np.percentile(us, 50):.1f}, "
+          f"p95 {np.percentile(us, 95):.1f} ({steady} ticks); {_profile_line(prof)}",
+          flush=True)
+    return {"solve_time_us_p50": float(np.percentile(us, 50)),
+            "solve_time_us_p95": float(np.percentile(us, 95)), **prof}
+
+
+def runtime_run(dev, out_dir, ticks=3500):
+    t0 = time.perf_counter()
+    ctl = runtime_controller(dev)
+    init_s = time.perf_counter() - t0
+    x0 = torch.zeros(12, dtype=torch.float32, device=dev)
+    x0[:6] = torch.tensor(INIT_Q)
+    plant = InProcessPlant(indy7(torch.float32), x0, DT, plant_cfg=PERTURBED_PLANT)
+    run_dir = os.path.join(out_dir, "perturbed_b64")
+    rec = RunRecorder(out_dir=run_dir, save_interval=1e9)
+    t0 = time.perf_counter()
+    rec = run_control_loop(ctl, plant, duration=1e9, rate_hz=100.0, recorder=rec,
+                           walk_disturbance=True, realtime=False, max_ticks=ticks)
+    wall = time.perf_counter() - t0
+    stem = rec.save()
+    st, te = rec._fetch("solve_times"), rec._fetch("tracking_errors")
+    result = {"ticks": int(te.shape[0]), "stem": stem, "init_s": init_s, "wall_s": wall,
+              "finite": bool(np.isfinite(te).all()), **rec.summary()}
+    print(json.dumps(result), flush=True)
+    table = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "analyze_stats.py"), run_dir,
+         str(ROOT / "stats_tpu" / "perturbed_b64")],
+        capture_output=True, text=True, timeout=600,
+    )
+    print(table.stdout + table.stderr, flush=True)
+    result["analyze_stats"] = table.stdout
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the results as JSON here")
+    ap.add_argument("--runtime", action="store_true",
+                    help="record the 3,500-tick host-dispatch run instead")
+    ap.add_argument("--stats-dir", default=str(ROOT / "build" / "stats_torch"),
+                    help="where --runtime writes its .npy recording")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -150,8 +254,12 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(card, flush=True)
-    result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "k1": k1_sweep(dev), "tick": tick_timing(dev)}
+    result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    if args.runtime:
+        result["runtime"] = runtime_run(dev, args.stats_dir)
+    else:
+        result.update(k1=k1_sweep(dev), tick=tick_timing(dev),
+                      controller=controller_timing(dev))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -1,12 +1,18 @@
-"""The sampled-MPC control tick on two kernels (port of ``mpc/fused_tick.py``).
+"""The sampled-MPC control ticks on two kernels (port of ``mpc/fused_tick.py``).
 
-One tick: slice the reference window, broadcast the state and the warm
-start to the B lanes, run the batched SQP solve (K1), run the tick
-epilogue (K2: consensus, argmin, winner gather, plant step, trace FK),
-gather the winning lane's trajectory, resample the wrench hypotheses and
-random-walk the true wrench.  On CUDA both kernels run in float32; on the
-CPU their plain versions run in the carry's dtype.  The tick never reads a
-device value on the host.
+:class:`FusedLoopTick`, the closed-loop tick: slice the reference window,
+broadcast the state and the warm start to the B lanes, run the batched SQP
+solve (K1), run the tick epilogue (K2: consensus, argmin, winner gather,
+plant step, trace FK), gather the winning lane's trajectory, resample the
+wrench hypotheses and random-walk the true wrench.
+
+:class:`SampledTick`, the host-driven controller tick behind
+``mpc.sampled.sampled_tick`` and ``runtime.SampledController``: the same
+solve, then consensus on an observed state (K2 with the plant outputs
+ignored), winner gather and resampling; no plant.
+
+On CUDA both kernels run in float32; on the CPU their plain versions run
+in the inputs' dtype.  Neither tick reads a device value on the host.
 """
 from __future__ import annotations
 
@@ -19,26 +25,86 @@ from ..config import (
     CostConfig, MPCConfig, PlantConfig, SampleConfig, SQPConfig,
 )
 from ..models.robot import RobotModel
-from ..ops.kernels.sqp_kernel import kernel_supports, sqp_solve
+from ..ops.kernels.sqp_kernel import require_kernel_config, sqp_solve
 from ..ops.kernels.tick_kernel import tick_epilogue
 from ..ops.lane_rbd import STATIC_FIELDS, StaticModel, static_model
 from ..sim.plant import perturb_model
 from .sampled import (
-    SampledLoopCarry, SampledTrace, TickDraws, resample_wrench_batch,
+    SampledLoopCarry, SampledTickResult, SampledTrace, TickDraws,
+    resample_wrench_batch,
 )
 
 
 def reference_window(ref_traj, offset, N: int):
     """``ref_traj[offset : offset + N]`` with the start clamped to
-    ``[0, len - N]``, as ``jax.lax.dynamic_slice_in_dim`` does; ``offset``
-    is a 0-d integer tensor."""
+    ``[0, len - N]``, as ``jax.lax.dynamic_slice_in_dim`` does.  ``offset``
+    is a 0-d integer tensor (the window is gathered on the device) or a
+    Python int (the window is a view)."""
+    if isinstance(offset, int):
+        start = min(max(offset, 0), ref_traj.shape[0] - N)
+        return ref_traj[start:start + N]
     start = torch.clamp(offset, 0, ref_traj.shape[0] - N)
     return ref_traj.index_select(
         0, start + torch.arange(N, device=ref_traj.device)
     )
 
 
-class FusedLoopTick(nn.Module):
+def broadcast_solve(smc, cost_cfg, sqp_cfg, dt, xk, goals, X_warm, U_warm, fb_T):
+    """K1 on B lanes that share one warm start, with the measured state
+    ``xk`` pinned as its first knot; the lanes differ only in their wrench
+    column of ``fb_T`` (6, B).  Everything is cast to ``xk``'s dtype.
+    Returns ``sqp_solve``'s (X, U, rho, alphas, steps), lane-major."""
+    N, B, kdt = goals.shape[0], fb_T.shape[1], xk.dtype
+    X0 = X_warm.to(kdt).clone()
+    X0[0] = xk
+    return sqp_solve(
+        smc, cost_cfg, sqp_cfg, dt,
+        xk[:, None].expand(12, B).contiguous(),
+        goals.to(kdt)[:, :, None].expand(N, 3, B).contiguous(),
+        X0[:, :, None].expand(N, 12, B).contiguous(),
+        U_warm.to(kdt)[:, :, None].expand(N - 1, 6, B).contiguous(),
+        wrench=fb_T,
+    )
+
+
+def consensus_args(x_obs, x_last, u_last, f_batch_T, U0_T):
+    """``tick_epilogue``'s arguments after ``(smc, smc, None, dt)`` for the
+    host-driven tick's consensus: ``x_obs`` as K2's current state, a zero
+    true wrench, no actuation noise.  K2's plant step then runs the
+    controller model and is ignored."""
+    return (x_obs, x_last.contiguous(), u_last.contiguous(), f_batch_T, U0_T,
+            torch.zeros(6, dtype=x_obs.dtype, device=x_obs.device), None)
+
+
+class _StaticModels(nn.Module):
+    """StaticModels held as buffers (``{name}_{field}``), so that ``.to``
+    moves them, and handed out per dtype, built once."""
+
+    def __init__(self, **models: StaticModel):
+        super().__init__()
+        self._names = tuple(models)
+        for name, sm in models.items():
+            for f in STATIC_FIELDS:
+                self.register_buffer(f"{name}_{f}", getattr(sm, f))
+        self._static = {}
+
+    def _apply(self, fn, recurse=True):
+        self._static = {}  # buffers move: rebuild the static models
+        return super()._apply(fn, recurse)
+
+    def static_models(self, dtype: torch.dtype):
+        """The StaticModels in ``dtype``, in the constructor's order."""
+        if dtype not in self._static:
+            self._static[dtype] = tuple(
+                StaticModel(
+                    **{f: getattr(self, f"{n}_{f}").to(dtype) for f in STATIC_FIELDS}
+                )
+                for n in self._names
+            )
+        return self._static[dtype]
+
+
+class FusedLoopTick(_StaticModels):
     """``tick(carry, draws=None) -> (carry, SampledTrace)``.
 
     Buffers: the reference trajectory and the controller and plant static
@@ -60,44 +126,20 @@ class FusedLoopTick(nn.Module):
         plant_model: Optional[RobotModel] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        super().__init__()
-        if not kernel_supports(cost_cfg, sqp_cfg):
-            raise ValueError(
-                "the tick covers the production config only "
-                "(formulation='gn', qp_backend='riccati')"
-            )
+        require_kernel_config(cost_cfg, sqp_cfg)
         ref_traj = torch.as_tensor(ref_traj)
         if ref_traj.shape[0] < mpc_cfg.N:
             raise ValueError("reference trajectory shorter than the horizon")
+        plant_cfg = plant_cfg or PlantConfig(substeps=mpc_cfg.sim_substeps)
+        plant = perturb_model(model if plant_model is None else plant_model, plant_cfg)
+        super().__init__(smc=static_model(model), smp=static_model(plant))
         self.cost_cfg, self.sqp_cfg = cost_cfg, sqp_cfg
         self.sample_cfg = sample_cfg
         self.N, self.dt = mpc_cfg.N, mpc_cfg.dt
         self.f_true_walk = f_true_walk
-        self.plant_cfg = plant_cfg or PlantConfig(substeps=mpc_cfg.sim_substeps)
+        self.plant_cfg = plant_cfg
         self.generator = generator
-        plant = perturb_model(
-            model if plant_model is None else plant_model, self.plant_cfg
-        )
         self.register_buffer("ref_traj", ref_traj)
-        for prefix, sm in (("smc", static_model(model)), ("smp", static_model(plant))):
-            for f in STATIC_FIELDS:
-                self.register_buffer(f"{prefix}_{f}", getattr(sm, f))
-        self._static = {}
-
-    def _apply(self, fn, recurse=True):
-        self._static = {}  # buffers move: rebuild the static models
-        return super()._apply(fn, recurse)
-
-    def static_models(self, dtype: torch.dtype):
-        """(controller, plant) StaticModels in ``dtype``, built once."""
-        if dtype not in self._static:
-            self._static[dtype] = tuple(
-                StaticModel(
-                    **{f: getattr(self, f"{p}_{f}").to(dtype) for f in STATIC_FIELDS}
-                )
-                for p in ("smc", "smp")
-            )
-        return self._static[dtype]
 
     def draw(self, device, dtype) -> TickDraws:
         if self.generator is None:
@@ -117,23 +159,16 @@ class FusedLoopTick(nn.Module):
         dtype, device = x.dtype, x.device
         kdt = torch.float32 if device.type == "cuda" else dtype
         smc, smp = self.static_models(kdt)
-        N, B = self.N, self.sample_cfg.batch_size
         if draws is None:
             draws = self.draw(device, dtype)
-        goals = reference_window(self.ref_traj, carry.ref_offset, N).to(dtype)
+        goals = reference_window(self.ref_traj, carry.ref_offset, self.N).to(dtype)
 
         # ---- K1: the batched solve, lanes broadcast from one warm start ----
         xk = x.to(kdt)
-        X0 = carry.X_best.to(kdt).clone()
-        X0[0] = xk
         fb_T = carry.f_batch.to(kdt).T.contiguous()
-        X, U, _rho, _alphas, _steps = sqp_solve(
-            smc, self.cost_cfg, self.sqp_cfg, self.dt,
-            xk[:, None].expand(12, B).contiguous(),
-            goals.to(kdt)[:, :, None].expand(N, 3, B).contiguous(),
-            X0[:, :, None].expand(N, 12, B).contiguous(),
-            carry.U_best.to(kdt)[:, :, None].expand(N - 1, 6, B).contiguous(),
-            wrench=fb_T,
+        X, U, _rho, _alphas, _steps = broadcast_solve(
+            smc, self.cost_cfg, self.sqp_cfg, self.dt, xk, goals,
+            carry.X_best, carry.U_best, fb_T,
         )
 
         # ---- K2: consensus, winner, plant, trace FK ----
@@ -184,6 +219,67 @@ class FusedLoopTick(nn.Module):
             ref_offset=carry.ref_offset + 1,
         )
         return new_carry, trace
+
+
+class SampledTick(_StaticModels):
+    """``tick(x_obs, x_last, u_last, goals, X_warm, U_warm, f_batch,
+    normals=None) -> (SampledTickResult, ee_pos)``: one host-driven
+    controller tick (``mpc.sampled.sampled_tick``).
+
+    K1 solves the B lanes from the shared warm start.  Consensus is K2
+    (:func:`consensus_args`; the TPU package does the same on its
+    accelerator): it replays ``(x_last, u_last)`` under each hypothesis
+    and keeps the lane whose prediction lands nearest ``x_obs``, the first
+    NaN first; its plant step is ignored.  ``ee_pos`` (3,) is the
+    end-effector position of ``x_obs``, from K2's trace FK.  Without
+    ``normals`` (B, 6) the resampling draws them from ``generator``.
+    """
+
+    def __init__(
+        self,
+        model: RobotModel,
+        cost_cfg: CostConfig,
+        sqp_cfg: SQPConfig,
+        sample_cfg: SampleConfig,
+        dt: float,
+        generator: Optional[torch.Generator] = None,
+    ):
+        require_kernel_config(cost_cfg, sqp_cfg)
+        super().__init__(smc=static_model(model))
+        self.cost_cfg, self.sqp_cfg = cost_cfg, sqp_cfg
+        self.sample_cfg, self.dt = sample_cfg, dt
+        self.generator = generator
+
+    def forward(self, x_obs, x_last, u_last, goals, X_warm, U_warm, f_batch, normals=None):
+        dtype, device = x_obs.dtype, x_obs.device
+        kdt = torch.float32 if device.type == "cuda" else dtype
+        (smc,) = self.static_models(kdt)
+        if normals is None:
+            if self.generator is None:
+                raise ValueError("tick called without normals and without a generator")
+            normals = torch.randn(
+                f_batch.shape, generator=self.generator, device=device, dtype=dtype
+            )
+        xk = x_obs.to(kdt)
+        fb_T = f_batch.to(kdt).T.contiguous()
+        X, U, _rho, alphas, _steps = broadcast_solve(
+            smc, self.cost_cfg, self.sqp_cfg, self.dt, xk, goals, X_warm, U_warm, fb_T
+        )
+        ep = tick_epilogue(smc, smc, None, self.dt, *consensus_args(
+            xk, x_last.to(kdt), u_last.to(kdt), fb_T, U[0]))
+        best, eep = ep.best, ep.eep.to(dtype)
+        idx = best.reshape(1)
+        X_best = X.index_select(2, idx)[:, :, 0].to(dtype)
+        U_best = U.index_select(2, idx)[:, :, 0].to(dtype)
+        return SampledTickResult(
+            u=U_best[0],
+            best_idx=best,
+            X_best=X_best,
+            U_best=U_best,
+            f_batch=resample_wrench_batch(normals, f_batch, best, self.sample_cfg),
+            f_est=f_batch.index_select(0, idx)[0],
+            sqp_iters=(alphas > 0).sum(0).index_select(0, idx)[0],
+        ), eep
 
 
 def make_fused_loop_tick(

@@ -4,7 +4,9 @@ Port of ``indy7_mpc_tpu/mpc/sampled.py``.  B lanes each solve the same
 tracking problem under their own hypothesized external wrench; consensus
 keeps the lane whose one-step prediction best matches the observed state,
 and the hypotheses are resampled around the winner.  The closed loop is a
-Python loop over the two-kernel tick of ``mpc/fused_tick.py``.
+Python loop over the two-kernel tick of ``mpc/fused_tick.py``; the
+host-driven tick (:func:`sampled_tick`, which ``runtime/controller.py``
+calls) is that file's ``SampledTick``.
 
 Random numbers come from an explicit ``torch.Generator`` on the carry's
 device; a tick can instead take its draws (:class:`TickDraws`) from the
@@ -20,6 +22,8 @@ from ..config import (
     CostConfig, MPCConfig, PlantConfig, SampleConfig, SQPConfig,
 )
 from ..models.robot import RobotModel
+from ..ops.kernels.tick_kernel import first_argmin
+from ..sim.plant import predict_next_states
 
 
 def init_wrench_batch(
@@ -48,6 +52,59 @@ def resample_wrench_batch(normals, f_batch, best_idx, cfg: SampleConfig):
     f[:, 3:] = 0.0
     f[0] = 0.0
     return f * cfg.decay
+
+
+def find_best_lane(sm, x_last, u_last, x_obs, dt: float, f_batch):
+    """Consensus scoring: replay ``(x_last, u_last)`` under each hypothesis
+    of ``f_batch`` (B, 6) and rank the predictions by their distance to
+    ``x_obs``.  Returns (winning lane, (B,) distances); a NaN distance wins,
+    the first NaN first, as ``jnp.argmin`` does.  ``sm`` is a StaticModel."""
+    x_pred = predict_next_states(sm, x_last, u_last, dt, f_batch.T)
+    err = torch.linalg.norm(x_pred - x_obs[:, None], dim=0)
+    return first_argmin(err), err
+
+
+class SampledTickResult(NamedTuple):
+    u: torch.Tensor            # (nu,) consensus control to apply
+    best_idx: torch.Tensor     # () winning lane
+    X_best: torch.Tensor       # (N, nx)
+    U_best: torch.Tensor       # (N-1, nu)
+    f_batch: torch.Tensor      # (B, 6) resampled hypotheses
+    f_est: torch.Tensor        # (6,) winning wrench estimate
+    sqp_iters: torch.Tensor    # () the winner's accepted SQP steps
+
+
+def sampled_tick(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    sample_cfg: SampleConfig,
+    dt: float,
+    generator: Optional[torch.Generator],
+    x_obs,
+    x_last,
+    u_last,
+    goals,
+    X_warm,
+    U_warm,
+    f_batch,
+    normals=None,
+) -> SampledTickResult:
+    """One control tick: batch-solve, score, resample, pick the control.
+
+    The TPU package's ``sampled_tick`` with its PRNG key replaced by
+    ``generator`` (on x_obs's device), from which the (B, 6) resampling
+    normals are drawn unless ``normals`` is given.  On CUDA it launches K1
+    and K2; on the CPU it runs their plain versions.  A caller that ticks
+    repeatedly should keep one ``fused_tick.SampledTick`` instead, which
+    builds the model constants once.
+    """
+    from .fused_tick import SampledTick
+
+    tick = SampledTick(model, cost_cfg, sqp_cfg, sample_cfg, dt, generator)
+    return tick.to(x_obs.device)(
+        x_obs, x_last, u_last, goals, X_warm, U_warm, f_batch, normals=normals
+    )[0]
 
 
 class SampledLoopCarry(NamedTuple):

@@ -34,10 +34,16 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def kernel_supports(cost_cfg: CostConfig, sqp_cfg: SQPConfig) -> bool:
+def require_kernel_config(cost_cfg: CostConfig, sqp_cfg: SQPConfig) -> None:
     """The configurations the kernel and its plain version implement: the
-    Gauss-Newton formulation with the Riccati QP backend."""
-    return cost_cfg.formulation == "gn" and sqp_cfg.qp_backend == "riccati"
+    Gauss-Newton formulation with the Riccati QP backend.  Anything else
+    raises ValueError."""
+    if cost_cfg.formulation != "gn" or sqp_cfg.qp_backend != "riccati":
+        raise ValueError(
+            "the SQP kernel and its plain version implement formulation='gn' with "
+            f"qp_backend='riccati' only, got {cost_cfg.formulation!r} with "
+            f"{sqp_cfg.qp_backend!r}"
+        )
 
 
 def sqp_solve(
@@ -61,11 +67,7 @@ def sqp_solve(
     must be float32 and contiguous.  Any configuration other than
     formulation 'gn' with qp_backend 'riccati' raises.
     """
-    if not kernel_supports(cost_cfg, sqp_cfg):
-        raise ValueError(
-            f"sqp_solve implements formulation='gn' with qp_backend='riccati' only, "
-            f"got {cost_cfg.formulation!r} with {sqp_cfg.qp_backend!r}"
-        )
+    require_kernel_config(cost_cfg, sqp_cfg)
     if xs.device.type == "cpu":
         X, U, rho, alphas, steps, _ = solve_lane_major(
             sm, cost_cfg, sqp_cfg, dt, xs, goals, X, U, wrench=wrench, rho=rho

@@ -1,0 +1,329 @@
+"""Real-time sampled-MPC controller runtime (external-plant mode; port of
+``indy7_mpc_tpu/runtime/controller.py``).
+
+The host-side equivalent of the reference's ROS 2 node
+(gato_controller.py:144-351) without the ROS dependency: a 100 Hz loop
+over a Transport, per-tick sampled solve (device), watchdog, disturbance
+random walk, and reference-schema stats recording.
+
+Tick semantics mirror ``GATO_Controller.joint_callback``
+(gato_controller.py:201-256):
+  * the reference window advances by elapsed/dt per tick (:214-216);
+  * all lanes warm-start from the previous best trajectory with the
+    measured state pinned (:217-218, 249);
+  * consensus lane selection + hypothesis resampling per tick (:225-226);
+  * the true disturbance random-walks every 200 reference steps, clipped
+    to +-20 N, and is published to the plant (:236-239);
+  * watchdog exit after 10 s without a plant state (:297-303).
+
+The controller's state is float32 on its ``device``; on CUDA each tick
+launches the SQP kernel (K1) once and the tick-epilogue kernel (K2) once.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import CostConfig, MPCConfig, SampleConfig, SQPConfig
+from ..models.convert import controller_state_from_npz
+from ..models.robot import RobotModel
+from ..mpc.fused_tick import SampledTick, reference_window
+from ..mpc.sampled import init_wrench_batch
+from .stats import RunRecorder
+
+JOINT_STATE_TIMEOUT = 10.0  # gato_controller.py:16-17
+
+
+class ControllerTick(nn.Module):
+    """The whole control tick as one module call: the goal window at the
+    reference offset, the sampled tick, and the EE position and tracking
+    error of the observed state.
+
+    ``forward(offset, x, x_last, u_last, X, U, f_batch, normals=None) ->
+    (SampledTickResult, host)``; ``host`` (20,) packs what the host loop
+    reads, [u (6), best lane, f_est (6), ee_ref (3), ee_pos (3), tracking
+    error], so that one transfer fetches it.
+    """
+
+    def __init__(self, model, cost_cfg, sqp_cfg, mpc_cfg, sample_cfg, ref_traj,
+                 generator):
+        super().__init__()
+        self.N = mpc_cfg.N
+        self.sampled = SampledTick(
+            model, cost_cfg, sqp_cfg, sample_cfg, mpc_cfg.dt, generator
+        )
+        self.register_buffer("ref_traj", torch.as_tensor(ref_traj))
+
+    def forward(self, offset: int, x, x_last, u_last, X, U, f_batch, normals=None):
+        goals = reference_window(self.ref_traj, offset, self.N)
+        out, eep = self.sampled(x, x_last, u_last, goals, X, U, f_batch, normals)
+        terr = torch.linalg.norm(eep - goals[0])
+        host = torch.cat([
+            out.u, out.best_idx.to(x.dtype).reshape(1), out.f_est, goals[0], eep,
+            terr.reshape(1),
+        ])
+        return out, host
+
+
+class SampledController:
+    """Host-side controller state machine around the device tick."""
+
+    def __init__(
+        self,
+        model: RobotModel,
+        cost_cfg: CostConfig,
+        sqp_cfg: SQPConfig,
+        mpc_cfg: MPCConfig,
+        sample_cfg: SampleConfig,
+        ref_traj: np.ndarray,
+        seed: int = 42,
+        f_ext_actual=None,
+        warmup: bool = True,
+        device="cpu",
+    ):
+        self.device = torch.device(device)
+        self.model = model
+        self.mpc_cfg = mpc_cfg
+        self.sample_cfg = sample_cfg
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        N = mpc_cfg.N
+        self.ref_offset = 0.0
+        self.f_batch = init_wrench_batch(
+            self.generator, sample_cfg, torch.float32, self.device
+        )
+        self.f_ext_actual = np.zeros(3) if f_ext_actual is None else np.asarray(
+            f_ext_actual, float
+        )
+        self.X_best = self._zeros(N, model.nx)
+        self.U_best = self._zeros(N - 1, model.nu)
+        self.x_last = None
+        self.u_last = self._zeros(model.nu)
+
+        # The WHOLE control tick is one module call: goal window at the
+        # offset, solve/score/resample, EE and tracking error; its only
+        # synchronizing transfer is the packed host vector (the reference
+        # pays one pybind call per tick for the same reason,
+        # gato_controller.py:224).
+        self._tick = ControllerTick(
+            model.to(device=self.device, dtype=torch.float32), cost_cfg,
+            sqp_cfg, mpc_cfg, sample_cfg,
+            torch.as_tensor(np.asarray(ref_traj), dtype=torch.float32),
+            self.generator,
+        ).to(self.device)
+        if warmup:
+            # Cold-start throwaway tick from zeros (the reference's
+            # init-time warm-up, gato_controller.py:180-184): pays the
+            # kernels' build and load and the device's first launches at
+            # construction, so the first real control tick runs at steady
+            # state.  Its normals are zeros, not draws, and every output is
+            # discarded: the controller state and the generator are
+            # untouched, so resumed runs stay bit-identical.
+            z = self._zeros(model.nx)
+            _, host = self._tick(
+                0, z, z, self.u_last, self.X_best, self.U_best, self.f_batch,
+                normals=torch.zeros_like(self.f_batch),
+            )
+            host.cpu()
+
+    def _zeros(self, *shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def on_state(self, x_obs, elapsed: float):
+        """One control tick; returns (u, info dict).
+
+        One module call + one blocking device->host fetch of the small
+        outputs (u, best lane, wrench estimate, current reference, EE,
+        tracking error); the warm-start trajectory and hypothesis batch
+        stay on the device.
+        """
+        x = torch.as_tensor(x_obs, dtype=torch.float32).to(self.device)
+        if self.x_last is None:
+            self.x_last = x
+        self.ref_offset += elapsed / self.mpc_cfg.dt
+
+        t0 = time.perf_counter()
+        out, host = self._tick(
+            int(self.ref_offset), x, self.x_last, self.u_last,
+            self.X_best, self.U_best, self.f_batch,
+        )
+        # The tick's ONLY synchronizing transfer.
+        host = host.cpu().numpy()
+        solve_time_us = (time.perf_counter() - t0) * 1e6
+
+        self.X_best = out.X_best
+        self.U_best = out.U_best
+        self.f_batch = out.f_batch
+        self.x_last = x
+        self.u_last = out.u
+        info = {
+            "best_idx": int(host[6]),
+            "f_est": host[7:13].copy(),
+            "solve_time_us": solve_time_us,
+            "ee_ref": host[13:16].copy(),
+            "ee_pos": host[16:19].copy(),
+            "tracking_error": float(host[19]),
+        }
+        return host[:6].copy(), info
+
+    def reset_warm_start(self) -> None:
+        """Controller-side companion to a plant reset (transport
+        ``send_reset``): drop the warm-start trajectory and last
+        state/control so the next tick cold-starts from the fresh plant
+        pose instead of chasing the pre-reset trajectory.  Hypotheses,
+        generator, and the reference offset are kept (the reference's 'R'
+        reset likewise leaves the controller process running,
+        sim_node.cpp:107-130)."""
+        N = self.mpc_cfg.N
+        self.X_best = self._zeros(N, self.model.nx)
+        self.U_best = self._zeros(N - 1, self.model.nu)
+        self.x_last = None
+        self.u_last = self._zeros(self.model.nu)
+
+    def save_checkpoint(self, path: str) -> str:
+        """Persist the controller's full warm-start/estimator state.
+
+        The reference's only "resume" is in-memory warm starting
+        (SURVEY.md section 5.4); here the same state — generator state,
+        reference window offset, wrench hypotheses, best trajectory, last
+        state/control — round-trips through one .npz so a run can stop
+        and resume bit-identically.  The file has the TPU package's fields
+        with ``generator_state`` in place of its PRNG ``key``.
+        """
+        np.savez(
+            path,
+            generator_state=self.generator.get_state().numpy(),
+            ref_offset=np.asarray(self.ref_offset),
+            f_batch=self.f_batch.cpu().numpy(),
+            f_ext_actual=self.f_ext_actual,
+            X_best=self.X_best.cpu().numpy(),
+            U_best=self.U_best.cpu().numpy(),
+            x_last=(
+                self.x_last.cpu().numpy()
+                if self.x_last is not None
+                else np.full(self.model.nx, np.nan, np.float32)
+            ),
+            u_last=self.u_last.cpu().numpy(),
+        )
+        return path
+
+    def load_state(self, state: dict) -> None:
+        """Take over a controller state: the fields of
+        :func:`models.convert.controller_state_from_npz`."""
+        for name, value in state.items():
+            setattr(self, name, value)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore state saved by :meth:`save_checkpoint`.  A checkpoint of
+        the TPU package's controller carries over too, except its PRNG key:
+        the generator then keeps its state."""
+        with np.load(path) as z:
+            self.load_state(controller_state_from_npz(z, device=self.device))
+            if "generator_state" in z:
+                self.generator.set_state(torch.from_numpy(z["generator_state"]))
+
+    def maybe_walk_disturbance(self, rng: np.random.Generator):
+        """Random-walk the true wrench every 200 ref steps
+        (gato_controller.py:236-239); returns it when it changed."""
+        if int(self.ref_offset) % 200 == 0:
+            noise = rng.normal(0, 1.0, size=3)
+            self.f_ext_actual = np.clip(self.f_ext_actual + noise, -20, 20)
+            return self.f_ext_actual
+        return None
+
+
+def run_control_loop(
+    controller: SampledController,
+    transport,
+    duration: float,
+    rate_hz: float = 100.0,
+    recorder: Optional[RunRecorder] = None,
+    walk_disturbance: bool = True,
+    seed: int = 42,
+    realtime: bool = True,
+    max_ticks: Optional[int] = None,
+):
+    """Closed loop against an external (or in-process) plant.
+
+    Stops after ``duration`` seconds of wall clock or ``max_ticks`` control
+    ticks, whichever comes first.  Returns the recorder (created if none
+    was given).
+    """
+    recorder = recorder or RunRecorder()
+    rng = np.random.default_rng(seed)
+    period = 1.0 / rate_hz
+    transport.send_wrench(controller.f_ext_actual)
+
+    ticks = 0
+    deadline = time.time() + duration
+    last_state_time = time.time()
+    last_tick = time.time()
+    last_sim_time = None
+    while time.time() < deadline and (max_ticks is None or ticks < max_ticks):
+        state = transport.recv_state()
+        now = time.time()
+        if state is None:
+            if now - last_state_time > JOINT_STATE_TIMEOUT:
+                raise TimeoutError(
+                    f"no plant state for {JOINT_STATE_TIMEOUT}s (watchdog)"
+                )
+            continue
+        last_state_time = now
+        # Advance the reference window by PLANT time when the plant
+        # reports its own sim clock (native plant_node protocol v2):
+        # exact under --realtime-scale and immune to transport jitter.
+        # Wall-clock deltas otherwise (the reference's behavior,
+        # gato_controller.py:208-211).
+        if state.sim_time is not None:
+            elapsed = (
+                state.sim_time - last_sim_time
+                if last_sim_time is not None else period
+            )
+            last_sim_time = state.sim_time
+        else:
+            elapsed = now - last_tick
+        last_tick = now
+
+        u, info = controller.on_state(state.x, elapsed if realtime else period)
+        transport.send_command(u)
+
+        if walk_disturbance:
+            w = controller.maybe_walk_disturbance(rng)
+            if w is not None:
+                transport.send_wrench(w)
+
+        # Tracking error against the plant-reported EE when the transport
+        # provides one (external plants report their own FK, like the
+        # reference's effort[0:3] side channel); the in-process plant
+        # shares the controller's nominal kinematics, so the tick's
+        # device-computed value is identical and costs no extra transfer.
+        if state.ee_pos is not None:
+            tracking_error = float(
+                np.linalg.norm(state.ee_pos - info["ee_ref"])
+            )
+            ee_rec = state.ee_pos
+        else:
+            tracking_error = info["tracking_error"]
+            ee_rec = info["ee_pos"]
+        recorder.record(
+            elapsed, tracking_error, ee_rec, info["ee_ref"],
+            state.x, info["solve_time_us"],
+            # Estimator-accuracy sidecars (RunRecorder.EXTRA_ARRAYS):
+            # winning hypothesis vs the wrench actually applied.
+            f_est=info["f_est"],
+            f_true=np.concatenate(
+                [controller.f_ext_actual, np.zeros(3)]
+            ),
+        )
+        recorder.maybe_save()
+        ticks += 1
+
+        if realtime:
+            sleep = period - (time.time() - now)
+            if sleep > 0:
+                time.sleep(sleep)
+    return recorder

@@ -1,8 +1,8 @@
-"""B-major batched SQP solve on kernel K1 (port of ``solvers/sqp_pallas.py``).
+"""B-major SQP solves on kernel K1 (port of ``solvers/sqp_pallas.py``).
 
-Same array contracts as the TPU package's ``sqp_pallas.batch_solve``.  On
-CUDA the kernel runs in float32; on the CPU the wrapper's plain version
-runs in the inputs' dtype.
+Same array contracts as the TPU package's ``sqp_pallas.batch_solve`` and
+``single_solve_fn``.  On CUDA the kernel runs in float32; on the CPU the
+wrapper's plain version runs in the inputs' dtype.
 """
 from __future__ import annotations
 
@@ -39,9 +39,55 @@ def batch_solve(
     iteration after the step-norm exit both log alpha = 0 and are not
     told apart.
     """
-    device = X_b.device
-    dtype = torch.float32 if device.type == "cuda" else X_b.dtype
+    dtype = _kernel_dtype(X_b)
     sm = LR.static_model(model.to(dtype=dtype))
+    return _solve(sm, cost_cfg, sqp_cfg, dt, xs_b, goals_b, X_b, U_b, state,
+                  wrench_world_batch)
+
+
+def single_solve_fn(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    dt: float,
+):
+    """Single-lane ``(xs, goals, X, U, state=None, wrench_world=None) ->
+    SQPResult`` on the SQP kernel at B = 1, for ``run_mpc`` and
+    ``run_tracking_mpc``.  xs (12,), goals (N, 3), X (N, 12), U (N-1, 6),
+    wrench_world (6,) or None; ``state.rho`` is a 0-d tensor, carried in
+    and out.  The model constants are built once per device and dtype."""
+    static = {}
+
+    def fn(xs, goals, X, U, state=None, wrench_world=None):
+        dtype = _kernel_dtype(X)
+        key = (X.device, dtype)
+        if key not in static:
+            static[key] = LR.static_model(model.to(device=X.device, dtype=dtype))
+        res = _solve(
+            static[key], cost_cfg, sqp_cfg, dt, xs[None], goals[None], X[None],
+            U[None], None if state is None else SolverState(rho=state.rho.reshape(1)),
+            None if wrench_world is None else wrench_world[None],
+        )
+        # rho keeps the carried state's dtype (float32 from
+        # SolverState.init), as the TPU package's solvers keep it.
+        rho_dtype = torch.float32 if state is None else state.rho.dtype
+        return SQPResult(
+            X=res.X[0],
+            U=res.U[0],
+            state=SolverState(rho=res.state.rho[0].to(rho_dtype)),
+            stats=SQPStats(*(a[0] for a in res.stats)),
+        )
+
+    return fn
+
+
+def _kernel_dtype(t):
+    return torch.float32 if t.device.type == "cuda" else t.dtype
+
+
+def _solve(sm, cost_cfg, sqp_cfg, dt, xs_b, goals_b, X_b, U_b, state,
+           wrench_world_batch) -> SQPResult:
+    dtype = sm.mass.dtype
 
     def lane_major(t, perm):
         return t.to(dtype).permute(*perm).contiguous()

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card against their plain versions (f32).
+"""The port's CUDA kernels on the card against their plain versions (f32),
+and the port's runtime on the card.
 
 Every test here needs an NVIDIA GPU with CUDA and nvcc, and skips without
 one.  The file imports no JAX, so it runs where JAX is not installed too;
@@ -11,6 +12,7 @@ Tolerances are those of the TPU package's own kernel checks: the scaled
 tolerances of tests/test_fused_tick.py for the tick kernel.
 """
 import dataclasses
+import subprocess
 
 import numpy as np
 import pytest
@@ -20,13 +22,23 @@ from indy7_mpc_tpu_torch.config import (
     PERTURBED_PLANT, CostConfig, MPCConfig, PlantConfig, SampleConfig, SQPConfig,
 )
 from indy7_mpc_tpu_torch.models import indy7
-from indy7_mpc_tpu_torch.mpc import TickDraws, init_loop_carry, reference, run_sampled_mpc
+from indy7_mpc_tpu_torch.mpc import (
+    TickDraws, find_best_lane, init_loop_carry, reference, run_sampled_mpc, sampled_tick,
+)
+from indy7_mpc_tpu_torch.mpc.fused_tick import consensus_args
 from indy7_mpc_tpu_torch.ops import lane_rbd as LR
 from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
 from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import (
     tick_epilogue, tick_epilogue_plain,
 )
-from indy7_mpc_tpu_torch.sim.plant import perturb_model
+from indy7_mpc_tpu_torch.runtime import (
+    InProcessPlant, RunRecorder, SampledController, UdpTransport, run_control_loop,
+)
+from indy7_mpc_tpu_torch.sim import native
+from indy7_mpc_tpu_torch.sim.kernel_plant import kernel_plant_args
+from indy7_mpc_tpu_torch.sim.plant import perturb_model, predict_next_states
+from indy7_mpc_tpu_torch.solvers.sqp import SolverState
+from indy7_mpc_tpu_torch.solvers.sqp_cuda import single_solve_fn
 from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
 
 pytestmark = pytest.mark.gpu
@@ -106,19 +118,81 @@ def test_tick_kernel_matches_plain(cuda, case):
         x_cur, x_cur + 0.01 * rng.normal(size=12), 5.0 * rng.normal(size=6), f_batch,
         3.0 * rng.normal(size=(6, B)), F_TRUE0,
     )] + [_f32(noise, cuda) if cfg.torque_noise_std else None]
+    best = _k2_against_plain(smc, smp, cfg, args)
+    if nan_lanes:  # a NaN consensus error wins, first NaN first
+        assert best == nan_lanes[0]
+
+
+def _k2_against_plain(smc, smp, cfg, args):
+    """One K2 launch against the plain version on ``args``; returns the
+    winner."""
     before = tick_epilogue.launches
     k = tick_epilogue(smc, smp, cfg, DT, *args)
     assert tick_epilogue.launches == before + 1
-    p = tick_epilogue_plain(smc, smp, cfg, DT, *args)
+    p = tick_epilogue_plain(smc, smp, cfg or PlantConfig(), DT, *args)
     torch.cuda.synchronize()
     assert int(k.best) == int(p.best)
-    if nan_lanes:  # a NaN consensus error wins, first NaN first
-        assert int(k.best) == nan_lanes[0]
     np.testing.assert_allclose(k.err.cpu().numpy(), p.err.cpu().numpy(), rtol=1e-3, atol=1e-5)
     np.testing.assert_allclose(k.x_next.cpu().numpy(), p.x_next.cpu().numpy(), atol=2e-3)
     np.testing.assert_array_equal(k.u.cpu().numpy(), p.u.cpu().numpy())
     np.testing.assert_array_equal(k.f_est.cpu().numpy(), p.f_est.cpu().numpy())
     np.testing.assert_allclose(k.eep.cpu().numpy(), p.eep.cpu().numpy(), atol=1e-5)
+    return int(k.best)
+
+
+@pytest.mark.parametrize("call", ["consensus", "plant_step", "perturbed_plant_step"])
+def test_tick_kernel_runtime_calls_match_plain(cuda, call):
+    """K2 as the runtime calls it: the host tick's consensus (B=64, the
+    controller model as the plant, no plant config, zero true wrench) and
+    the single-state plant step of InProcessPlant / run_mpc /
+    run_tracking_mpc (B=1: nominal without a wrench, and perturbed with
+    wrench and actuation noise)."""
+    model = indy7(torch.float32, cuda)
+    smc = LR.static_model(model)
+    rng = np.random.default_rng(8)
+    t = lambda a: _f32(a, cuda)
+    x = t(np.r_[INIT_Q, 0.3 * rng.normal(size=6)])
+    u = t(5.0 * rng.normal(size=6))
+    if call == "consensus":
+        lanes = 64
+        f_batch = 20.0 * rng.normal(size=(6, lanes))
+        f_batch[3:] = 0.0
+        f_batch[:, 0] = 0.0
+        x_obs = predict_next_states(smc, x, u, DT, t(f_batch))[:, 9] + t(1e-4 * rng.normal(size=12))
+        best = _k2_against_plain(smc, smc, None, consensus_args(
+            x_obs, x, u, t(f_batch), t(3.0 * rng.normal(size=(6, lanes)))))
+        assert best == 9
+    elif call == "plant_step":
+        _k2_against_plain(smc, smc, PlantConfig(), kernel_plant_args(x, u))
+    else:
+        cfg = PERTURBED_PLANT
+        noise = t(cfg.torque_noise_std * rng.normal(size=(cfg.substeps, 6)))
+        smp = LR.static_model(perturb_model(model, cfg))
+        _k2_against_plain(smc, smp, cfg, kernel_plant_args(x, u, t(F_TRUE0), noise))
+
+
+def test_in_process_plant_on_the_card(cuda):
+    """InProcessPlant on a card state steps through K2, one launch per
+    command, and follows the same plant on the CPU (plain version, f32;
+    the actuation noise off, since the two devices' generators differ)."""
+    cfg = dataclasses.replace(PERTURBED_PLANT, torque_noise_std=0.0)
+    x0 = np.r_[INIT_Q, np.zeros(6)]
+    rng = np.random.default_rng(9)
+    us = 10.0 * rng.normal(size=(5, 6))
+    xs = {}
+    for device in (cuda, torch.device("cpu")):
+        plant = InProcessPlant(indy7(torch.float32), torch.as_tensor(x0, dtype=torch.float32,
+                                                                     device=device), DT,
+                               plant_cfg=cfg)
+        plant.send_wrench(F_TRUE0[:3])
+        before = tick_epilogue.launches
+        for u in us:
+            plant.send_command(u)
+        assert tick_epilogue.launches - before == (len(us) if device.type == "cuda" else 0)
+        assert plant.recv_state().x.device.type == device.type
+        xs[device.type] = plant.recv_state().x.cpu().numpy()
+    assert np.isfinite(xs["cuda"]).all()
+    np.testing.assert_allclose(xs["cuda"], xs["cpu"], atol=2e-3)
 
 
 def test_closed_loop_on_the_card_follows_the_cpu_loop(cuda):
@@ -158,3 +232,86 @@ def test_closed_loop_on_the_card_follows_the_cpu_loop(cuda):
     np.testing.assert_array_equal(gpu["best_idx"], cpu["best_idx"])
     np.testing.assert_allclose(gpu["x"], cpu["x"], atol=5e-3)
     np.testing.assert_allclose(gpu["tracking_error"], cpu["tracking_error"], atol=1e-3)
+
+
+def test_sampled_tick_on_the_card(cuda):
+    """The host-driven tick launches K1 and K2 once each; K2's consensus
+    winner is the plain predict-and-argmin's on the same inputs."""
+    rng = np.random.default_rng(6)
+    x_last = np.r_[INIT_Q, 0.2 * rng.normal(size=6)]
+    u_last = 5.0 * rng.normal(size=6)
+    f_batch = 20.0 * rng.normal(size=(B, 6))
+    f_batch[:, 3:] = 0.0
+    f_batch[0] = 0.0
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    t = lambda a: _f32(a, cuda)
+    x_obs = predict_next_states(sm, t(x_last), t(u_last), DT, t(f_batch).T)[:, 5]
+    x_obs = x_obs + t(1e-4 * rng.normal(size=12))
+    goals = reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10,
+                              dt=DT, cycles=1)[:N]
+    args = [t(a) for a in (x_last, u_last, goals, np.tile(x_last, (N, 1)),
+                           rng.normal(size=(N - 1, 6)), f_batch)]
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    out = sampled_tick(indy7(torch.float32), COST, SQP, SampleConfig(batch_size=B), DT,
+                       torch.Generator(device=cuda).manual_seed(0), x_obs, *args)
+    assert (sqp_solve.launches - before[0], tick_epilogue.launches - before[1]) == (1, 1)
+    best, _ = find_best_lane(sm, t(x_last), t(u_last), x_obs, DT, t(f_batch))
+    assert int(out.best_idx) == int(best) == 5
+    assert torch.isfinite(out.X_best).all() and torch.isfinite(out.f_batch).all()
+    np.testing.assert_array_equal(out.f_est.cpu().numpy(), f_batch[5].astype(np.float32))
+
+
+def test_single_solve_fn_matches_plain(cuda):
+    """K1 at B = 1 through single_solve_fn, the SolverState carried in and
+    out, against the plain version."""
+    n, sqp = 32, SQPConfig(max_iters=3)
+    rng = np.random.default_rng(13)
+    xs, goals = np.r_[INIT_Q, np.zeros(6)], np.tile([0.3, 0.3, 0.6], (n, 1))
+    X, U = rng.normal(size=(n, 12)) * 0.05, rng.normal(size=(n - 1, 6)) * 0.5
+    state = SolverState(rho=torch.tensor(4e-6, device=cuda))
+    before = sqp_solve.launches
+    res = single_solve_fn(indy7(torch.float32), COST, sqp, DT)(
+        *(_f32(a, cuda) for a in (xs, goals, X, U)), state)
+    assert sqp_solve.launches == before + 1
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    lane = lambda a: _f32(a, cuda)[..., None]
+    p = solve_lane_major(sm, COST, sqp, DT, lane(xs), lane(goals), lane(X), lane(U),
+                         rho=state.rho.reshape(1))
+    np.testing.assert_array_equal(res.stats.alphas.cpu().numpy(), p[3][:, 0].cpu().numpy())
+    np.testing.assert_allclose(float(res.state.rho), float(p[2][0]), rtol=1e-6)
+    assert res.state.rho.dtype == torch.float32
+    for a, b in ((res.X, p[0][..., 0]), (res.U, p[1][..., 0])):
+        scale = max(1.0, b.abs().max().item())
+        np.testing.assert_allclose((a / scale).cpu().numpy(), (b / scale).cpu().numpy(), atol=6e-3)
+
+
+def test_native_plant_udp_loop_on_the_card(cuda, tmp_path):
+    """The port builds the native plant, and the controller on the card
+    runs 20 ticks against it over UDP (ports 7580/7581), K1 and K2 once
+    per tick plus the warm-up."""
+    node = native.plant_node_path()
+    ref = reference.with_padding(reference.figure8(
+        A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT, cycles=1), 200)
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    ctl = SampledController(indy7(torch.float32), COST, SQP, MPCConfig(N=N, dt=DT),
+                            SampleConfig(batch_size=B), ref, f_ext_actual=F_TRUE0[:3],
+                            device=cuda)
+    proc = subprocess.Popen([node, "0.002", "5", "--realtime-scale", "4",
+                             "--ports", "7581", "7580"], stdout=subprocess.DEVNULL)
+    try:
+        tr = UdpTransport(plant_addr=("127.0.0.1", 7581), listen_addr=("127.0.0.1", 7580))
+        try:
+            tr.wait_for_state(timeout=30.0)
+            rec = run_control_loop(ctl, tr, duration=120, rate_hz=25,
+                                   recorder=RunRecorder(str(tmp_path), save_interval=1e9),
+                                   max_ticks=20)
+        finally:
+            tr.close()
+        assert proc.poll() is None
+    finally:
+        proc.kill()
+        proc.wait()
+    assert (sqp_solve.launches - before[0], tick_epilogue.launches - before[1]) == (21, 21)
+    te = rec._fetch("tracking_errors")
+    assert te.shape == (20,) and np.isfinite(te).all()
+    assert np.isfinite(rec._fetch("joint_positions")).all()

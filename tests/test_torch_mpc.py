@@ -1,0 +1,104 @@
+"""The single-lane loops of the port (``run_mpc``, ``run_tracking_mpc``;
+the SQP kernel's plain version at B = 1 and the tick epilogue's plain
+version as the plant) against the TPU package's on its readable solver,
+float64 on the CPU.
+
+Each JAX loop is jitted once.  Both sides run the same Gauss-Newton SQP
+and RK4 arithmetic in f64, so states and controls agree to 1e-8 over the
+few ticks run here (the solvers agree to ~1e-9 per solve).  ``sqp_iters``
+differs by design where a step is rejected (the port counts accepted
+steps), so the port's count is held at or below the JAX count.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import indy7_mpc_tpu.config as jcfg
+from indy7_mpc_tpu.dynamics import ee_pos as jax_ee_pos
+from indy7_mpc_tpu.models import indy7 as jax_indy7
+from indy7_mpc_tpu.mpc import reference as jax_reference
+from indy7_mpc_tpu.mpc import run_mpc as jax_run_mpc
+from indy7_mpc_tpu.mpc.tracking import run_tracking_mpc as jax_run_tracking_mpc
+import indy7_mpc_tpu_torch.config as cfg
+from indy7_mpc_tpu_torch.models import indy7
+from indy7_mpc_tpu_torch.mpc import run_mpc, run_tracking_mpc
+from indy7_mpc_tpu_torch.solvers.select import default_single_solve_fn
+
+N, DT, STEPS, ATOL = 8, 0.01, 6, 1e-8
+INIT_Q = [1.5799, 0.0631, -1.1807, 1.0927, -0.6255, -0.0190]
+WRENCH = [5.0, 0.0, 15.0, 0.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("cost, sqp", [
+    (cfg.CostConfig(), cfg.SQPConfig(qp_backend="pcg")),
+    (cfg.CostConfig(formulation="reference"), cfg.SQPConfig()),
+])
+def test_single_solve_selector_raises_outside_kernel_coverage(cost, sqp):
+    """The loops' single-lane solver is K1 (or its plain version), which
+    covers formulation 'gn' with the Riccati backend only."""
+    with pytest.raises(ValueError):
+        default_single_solve_fn(indy7(torch.float64), cost, sqp, DT)
+
+
+def _close(port, jax_value, name):
+    np.testing.assert_allclose(
+        port.numpy(), np.asarray(jax_value), rtol=0, atol=ATOL, err_msg=name
+    )
+
+
+def test_run_mpc_matches_jax():
+    """Point to goal: a goal chain near the start pose so the goal switches
+    within the run, a true wrench on the plant, rho carried across solves."""
+    model = jax_indy7(dtype=jnp.float64)
+    x0 = np.r_[INIT_Q, np.zeros(6)]
+    ee0 = np.asarray(jax_ee_pos(model, jnp.asarray(x0[:6])))
+    endpoints = np.stack([ee0 + [0.02, 0.0, -0.02], ee0 + [-0.05, 0.05, -0.05]])
+    sqp, mpc = jcfg.SQPConfig(max_iters=2), jcfg.MPCConfig(N=N, dt=DT)
+    final, jt = jax.jit(lambda x: jax_run_mpc(
+        model, jcfg.CostConfig(), sqp, mpc, x, endpoints, STEPS,
+        wrench_world=jnp.asarray(WRENCH),
+    ))(jnp.asarray(x0))
+
+    pf, pt = run_mpc(
+        indy7(torch.float64), cfg.CostConfig(), cfg.SQPConfig(max_iters=2),
+        cfg.MPCConfig(N=N, dt=DT), torch.as_tensor(x0), endpoints, STEPS,
+        wrench_world=torch.tensor(WRENCH, dtype=torch.float64),
+    )
+    np.testing.assert_array_equal(pt.goal_idx.numpy(), np.asarray(jt.goal_idx))
+    assert np.asarray(jt.goal_idx)[-1] != 0  # the goal switched
+    for f in ("x", "u", "goal_dist"):
+        _close(getattr(pt, f), getattr(jt, f), f)
+    assert (pt.sqp_iters.numpy() <= np.asarray(jt.sqp_iters)).all()
+    for f in ("x", "X", "U"):
+        _close(getattr(pf, f), getattr(final, f), f)
+    assert bool(pf.alive) and bool(final.alive)
+    assert int(pf.goal_idx) == int(final.goal_idx)
+    np.testing.assert_allclose(float(pf.state.rho), float(final.state.rho), rtol=1e-6)
+
+
+def test_run_tracking_mpc_matches_jax():
+    """fig-8 tracking with a wrench on the plant that the solver models."""
+    model = jax_indy7(dtype=jnp.float64)
+    ref = jax_reference.with_padding(jax_reference.figure8(
+        A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT, cycles=1), 200)[196:]
+    x0 = np.r_[INIT_Q, np.zeros(6)]
+    sqp, mpc = jcfg.SQPConfig(max_iters=1), jcfg.MPCConfig(N=N, dt=DT)
+    final, jt = jax.jit(lambda x: jax_run_tracking_mpc(
+        model, jcfg.CostConfig(), sqp, mpc, x, ref, STEPS,
+        wrench_world=jnp.asarray(WRENCH), solver_wrench=jnp.asarray(WRENCH),
+    ))(jnp.asarray(x0))
+
+    pf, pt = run_tracking_mpc(
+        indy7(torch.float64), cfg.CostConfig(), cfg.SQPConfig(max_iters=1),
+        cfg.MPCConfig(N=N, dt=DT), torch.as_tensor(x0), ref, STEPS,
+        wrench_world=torch.tensor(WRENCH, dtype=torch.float64),
+        solver_wrench=torch.tensor(WRENCH, dtype=torch.float64),
+    )
+    for f in ("tracking_error", "ee_pos", "ee_ref", "q", "u"):
+        _close(getattr(pt, f), getattr(jt, f), f)
+    assert (pt.sqp_iters.numpy() <= np.asarray(jt.sqp_iters)).all()
+    for f in ("x", "X", "U"):
+        _close(getattr(pf, f), getattr(final, f), f)
+    assert int(pf.ref_offset) == int(final.ref_offset) == STEPS

@@ -6,10 +6,12 @@ Usage: python3 chip_smoke.py      (from the repository root; needs one card)
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from indy7_mpc_tpu_torch/csrc with nvcc;
-  3. SQP kernel (K1) against its plain PyTorch version on the card:
-     B=64, N=64, 2 SQP iterations, f32 with TF32 off; the line-search
-     alphas must be equal on every lane and X, U within 6e-3 after scaling
-     each lane by max(1, max |value|);
+  3. SQP kernel (K1, one block of threads per lane, the lane's horizon in
+     shared memory) against its plain PyTorch version on the card: B=64,
+     N=64, 2 SQP iterations, f32 with TF32 off; the line-search alphas
+     must be equal on every lane and X, U within 6e-3 after scaling each
+     lane by max(1, max |value|); then K1 timed whole and at its
+     profiling cut (stages 1, 1-2, 1-3);
   4. tick-epilogue kernel (K2) against its plain version: B=64 on the
      perturbed plant (winner equal, err rtol 1e-3 / atol 1e-5, x_next atol
      2e-3, u and f_est equal to rtol 1e-7, eep atol 1e-5);
@@ -27,9 +29,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      p50 under 50 N; then K2 as the consensus (B=64) and as the plant step
      (B=1) against its plain version at phase 4's tolerances;
   7. the runtime over UDP: the native plant built from native/plant by the
-     port (sim/native.py), plant_node with the perturbed plant's flags at
-     --realtime-scale 4, its first state awaited, the same controller at
-     25 Hz of wall clock (100 Hz of plant time) for 300 ticks: at least 250
+     port (sim/native.py), plant_node with the perturbed plant's flags in
+     real time (--realtime-scale 1: the controller tick fits the 10 ms
+     period), its first state awaited, the same controller at 100 Hz for
+     300 ticks: at least 250
      ticks recorded, finite, last-100 tracking under 0.3 m, wrench-estimate
      error p50 under 50 N; the plant process is killed at the end;
   8. point to goal: K1 at B=1 (N=32, 3 SQP iterations) against its plain
@@ -39,7 +42,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      the end, states finite; then K2 as that plant step (B=1) against its
      plain version at phase 4's tolerances.
 
-The line before the last is the kernels' JSON summary; the last line is
+Each kernel's bound is the larger of its floating-point operations on
+the phase's inputs over 67 TFLOP/s and the bytes of its inputs and
+outputs over 3.35 TB/s (H100 SXM, 700 W), from
+indy7_mpc_tpu_torch/roofline.py: K1's operations are the kernel's own
+arithmetic (k1_work), K2's those of its plain version.  No PyTorch call
+computes either kernel's function, so library_ms is null.  There is no
+fallback: a kernel that does not build or launch, or a horizon that does
+not fit K1's shared memory, fails its phase.
+
+The line before the last is the card's name and power limit, the one
+before it the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 import json
@@ -51,7 +64,7 @@ import time
 B, N, DT, SQP_ITERS, TICKS = 64, 64, 0.01, 2, 500
 INIT_Q = [1.5799, 0.0631, -1.1807, 1.0927, -0.6255, -0.0190]
 F_TRUE0 = [-60.0, 20.0, -40.0, 0.0, 0.0, 0.0]
-UDP_TICKS, REALTIME_SCALE, UDP_PORTS = 300, 4, (7611, 7610)  # plant, controller
+UDP_TICKS, REALTIME_SCALE, UDP_PORTS = 300, 1, (7611, 7610)  # plant, controller
 P2G_N, P2G_ITERS, P2G_STEPS = 32, 3, 300
 
 
@@ -92,26 +105,19 @@ def phase_sqp(dev):
     import numpy as np
     import torch
 
+    from indy7_mpc_tpu_torch import measure
     from indy7_mpc_tpu_torch.config import CostConfig, SQPConfig
     from indy7_mpc_tpu_torch.models import indy7
     from indy7_mpc_tpu_torch.ops import lane_rbd as LR
-    from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+    from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
+    from indy7_mpc_tpu_torch.roofline import bound_ms, k1_work
     from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
 
     cost, sqp = CostConfig(), SQPConfig(max_iters=SQP_ITERS)
     sm = LR.static_model(indy7(torch.float32, dev))
-    rng = np.random.default_rng(11)
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
-    w = rng.normal(size=(6, B)) * 8
-    w[3:] = 0.0
-    args = (
-        f32(rng.normal(size=(12, B)) * 0.05),        # xs
-        f32(rng.normal(size=(N, 3, B)) * 0.3),       # goals
-        f32(rng.normal(size=(N, 12, B)) * 0.05),     # X
-        f32(rng.normal(size=(N - 1, 6, B)) * 0.5),   # U
-    )
-    kw = dict(wrench=f32(w))
-    k = sqp_solve(sm, cost, sqp, DT, *args, **kw)
+    args, w = measure.k1_inputs(dev, B, N)
+    kw = dict(wrench=w)
+    k = K1.sqp_solve(sm, cost, sqp, DT, *args, **kw)
     p = solve_lane_major(sm, cost, sqp, DT, *args, **kw)
     torch.cuda.synchronize()
     k_alpha, p_alpha = k[3].cpu().numpy(), p[3].cpu().numpy()
@@ -125,15 +131,25 @@ def phase_sqp(dev):
         scaled = ((a - b).abs() / scale).max().item()
         check(scaled <= 6e-3, f"K1 X/U scaled error {scaled:.3e} > 6e-3")
         err = max(err, (a - b).abs().max().item())
-    ms = cuda_ms(lambda: sqp_solve(sm, cost, sqp, DT, *args, **kw), 20)
+    ms = cuda_ms(lambda: K1.sqp_solve(sm, cost, sqp, DT, *args, **kw), 100)
+    stage_ms = [cuda_ms(lambda: K1.sqp_solve(sm, cost, sqp, DT, *args, **kw, stages=st), 100)
+                for st in (1, 2, 3)] + [ms]
     plain_ms = cuda_ms(lambda: solve_lane_major(sm, cost, sqp, DT, *args, **kw), 2)
+    flops, nbytes = k1_work(B, N, cost, sqp, use_wrench=True)
+    bound, bound_by = bound_ms(flops, nbytes)
     print(f"K1 sqp_solve B={B} N={N}: kernel {ms * 1e3:.1f} us/solve, "
           f"plain {plain_ms * 1e3:.1f} us/solve, max |X,U err| {err:.3e}, "
-          f"alphas equal on all {B} lanes", flush=True)
+          f"alphas equal on all {B} lanes; cumulative by stage (us) "
+          + ", ".join(f"1-{i + 1} {t * 1e3:.1f}" for i, t in enumerate(stage_ms))
+          + f"; bound {bound * 1e3:.2f} us ({bound_by}, {flops} flop), "
+          f"{K1.THREADS} threads, {K1.shared_bytes(N)} bytes of shared memory", flush=True)
     return {"name": "sqp_solve", "route": "cuda",
             "source": "indy7_mpc_tpu_torch/csrc/sqp_kernel.cu",
             "replaces": "indy7_mpc_tpu/ops/pallas/sqp_kernel.py:251",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None, "threads": K1.THREADS,
+            "smem_bytes": K1.shared_bytes(N),
+            "stage_ms": stage_ms}
 
 
 def phase_tick(dev):
@@ -146,6 +162,7 @@ def phase_tick(dev):
     from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import (
         tick_epilogue, tick_epilogue_plain,
     )
+    from indy7_mpc_tpu_torch.roofline import FlopCounter, bound_ms, tensor_bytes
     from indy7_mpc_tpu_torch.sim.plant import perturb_model
 
     cfg = PERTURBED_PLANT
@@ -167,12 +184,17 @@ def phase_tick(dev):
     best, err = check_k2_call("K2", smc, smp, cfg, args)
     ms = cuda_ms(lambda: tick_epilogue(smc, smp, cfg, DT, *args), 50)
     plain_ms = cuda_ms(lambda: tick_epilogue_plain(smc, smp, cfg, DT, *args), 3)
+    with FlopCounter() as flops:
+        out = tick_epilogue_plain(smc, smp, cfg, DT, *args)
+    bound, bound_by = bound_ms(flops.flops, tensor_bytes([*args, *out]))
     print(f"K2 tick_epilogue B={B}: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
-          f"max abs err {err:.3e}, winner {best}", flush=True)
+          f"max abs err {err:.3e}, winner {best}; bound {bound * 1e3:.3f} us "
+          f"({bound_by}, {flops.flops} flop)", flush=True)
     return {"name": "tick_epilogue", "route": "cuda",
             "source": "indy7_mpc_tpu_torch/csrc/tick_kernel.cu",
             "replaces": "indy7_mpc_tpu/ops/pallas/tick_kernel.py:140",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def check_k2_call(label, smc, smp, cfg, args):
@@ -412,6 +434,7 @@ def phase_point_to_goal(dev):
     from indy7_mpc_tpu_torch.mpc import run_mpc
     from indy7_mpc_tpu_torch.ops import lane_rbd as LR
     from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+    from indy7_mpc_tpu_torch.roofline import bound_ms, k1_work
     from indy7_mpc_tpu_torch.sim.kernel_plant import kernel_plant_args
     from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
 
@@ -435,10 +458,12 @@ def phase_point_to_goal(dev):
         scaled = ((a - b).abs() / b.abs().max().clamp(min=1.0)).max().item()
         check(scaled <= 6e-3, f"K1 B=1 X/U scaled error {scaled:.3e} > 6e-3")
         err = max(err, (a - b).abs().max().item())
-    ms = cuda_ms(lambda: sqp_solve(sm, cost, sqp, DT, *args), 20)
+    ms = cuda_ms(lambda: sqp_solve(sm, cost, sqp, DT, *args), 100)
     plain_ms = cuda_ms(lambda: solve_lane_major(sm, cost, sqp, DT, *args), 2)
+    bound, bound_by = bound_ms(*k1_work(1, P2G_N, cost, sqp, use_wrench=False))
     print(f"K1 sqp_solve B=1 N={P2G_N} {P2G_ITERS} iterations: kernel {ms * 1e3:.1f} us, "
-          f"plain {plain_ms * 1e3:.1f} us, max |X,U err| {err:.3e}", flush=True)
+          f"plain {plain_ms * 1e3:.1f} us, max |X,U err| {err:.3e}; bound "
+          f"{bound * 1e3:.3f} us ({bound_by})", flush=True)
 
     x0 = torch.zeros(12, dtype=torch.float32, device=dev)
     ee0 = torch.stack(LR.ee_pos(sm, list(x0[:6]))).cpu().numpy()
@@ -474,7 +499,7 @@ def phase_point_to_goal(dev):
                               kernel_plant_args(final.x, trace.u[-1]))
     print(f"K2 as run_mpc's plant step B=1: max abs err {k2_err:.3e}", flush=True)
     return launches, {"B": 1, "N": P2G_N, "iters": P2G_ITERS, "max_abs_err": err,
-                      "ms": ms, "plain_ms": plain_ms}
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
 def main():
@@ -486,6 +511,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from indy7_mpc_tpu_torch.ops.kernels import _build
+        from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
     except ImportError as e:
         raise SmokeFailure(f"the indy7_mpc_tpu_torch package is missing ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -503,6 +529,9 @@ def main():
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip(), flush=True)
+    print(f"K1: one block of {K1.THREADS} threads per lane, {K1.shared_bytes(N)} bytes of "
+          f"dynamic shared memory at N={N} ({K1.shared_bytes(P2G_N)} at N={P2G_N}; "
+          f"N <= {K1.MAX_N})", flush=True)
 
     kernels = [phase_sqp(dev), phase_tick(dev)]
     phases = {"run_sampled_mpc": phase_main_path(dev),

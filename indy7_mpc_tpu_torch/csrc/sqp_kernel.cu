@@ -1,4 +1,4 @@
-// Kernel K1: the whole batched SQP solve, one thread per lane (sm_90a).
+// Kernel K1: the whole batched SQP solve, one thread block per lane (sm_90a).
 //
 // Replaces the Pallas TPU kernel indy7_mpc_tpu/ops/pallas/sqp_kernel.py
 // (_sqp_kernel, launched by sqp_solve_pallas).  Per lane and per SQP
@@ -16,44 +16,124 @@
 //      alpha wins), the masked update, the step-norm exit and the rho
 //      backoff.
 //
-// What bounds it on the card: latency.  One thread per lane with B = 64
-// fills two warps on two SMs of 132; each thread runs a long dependent
-// chain of scalar float math (~10^7 instructions per solve at N = 64), and
-// the per-knot scratch (254 floats per knot per lane, ~65 KB per lane at
-// N = 64, 4 MB at B = 64) lives in global memory in (knot, row, lane)
-// order, so a warp's accesses coalesce and the working set stays in L2.
-// This first version is the simple, correct one; spreading a lane's knots
-// (stages 1 and 4) and the 12 columns of S (stage 2) over the threads of a
-// block is the next step.
+// What bounds it on the card: latency.  The work (about 1.6e5 flops per
+// knot per iteration, counted by roofline.k1_work; ~10 KB of inputs and
+// outputs per lane) is far below the card's rates; the floor is the
+// serial chain of dependent small
+// products, above all the Riccati sweep over the knots.  The design: one
+// block per lane.  The lane's horizon (trajectory, goals and every
+// per-knot array of the solve, 1,316 bytes per knot) lives in dynamic
+// shared memory, gathered from the lane-major inputs at the start and
+// scattered back at the end.  The threads of the block stride over each
+// stage's independent work, in the structure of the TPU kernel: stage 1
+// over knots and then over (knot, tangent) pairs, stage 2 over the entries
+// of each knot's products (4 barriers a knot: S is re-symmetrized where it
+// is read, and each of the 13 Quu solves factors Quu itself), stage 3 over
+// the state rows (1 barrier a knot), stage 4 over (knot, alpha) pairs.
+// Every cooperative loop is `for (i = tid; i < n; i += nthreads)` between
+// barriers, and every sum is taken by one thread in a fixed order, so the
+// result is the same bits for any block size.  No tensor cores: the
+// products are 12x12 and the recursion needs full f32.  The Dual RNEA of
+// stage 1b takes the 255 registers a thread may have, so 256 threads fill
+// an SM's register file: one block per SM, 64 of 132 SMs at B=64.
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 #include "rbd.cuh"
 
 namespace indy7 {
 
 // Cost, SQP and horizon settings; mirrored by SolveParams in
-// ops/kernels/_abi.py.
+// ops/kernels/_abi.py.  `stages` < 4 cuts every iteration after stage 1,
+// 2 or 3 (a profiling aid: the outputs are then meaningless).
 struct SolveParams {
   float dt, dQ, R, QN, eps, q_barrier, q_barrier_margin;
   float merit_mu, step_tol, rho_min, rho_max, rho_factor;
-  int regularize, max_iters, num_alphas, N, B, use_wrench;
+  int regularize, max_iters, num_alphas, N, B, use_wrench, stages;
 };
 
 constexpr int kMaxAlphas = 16;
-constexpr int kThreads = 32;
+constexpr int kMaxThreads = 256;
+constexpr int kWarp = 32;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 
-// Scratch rows per knot, in the order of the regions below.
-constexpr int kDa = 72, kMinv = 36, kD = 12, kQv = 12, kSc = 8, kJ = 18;
-constexpr int kK = 72, kKff = 6, kDX = 12, kDU = 6;
+// Shared floats per knot, region by region (each region holds N knots).
+constexpr int kX = 12, kU = 6, kG = 3, kDa = 72, kMinv = 36, kD = 12;
+constexpr int kQv = 12, kSc = 8, kJ = 18, kK = 72, kKff = 6, kDX = 12, kDU = 6;
+// Work: stage 1's a (6), L (36) and invD (6) of the knot, then stage 4's
+// costs and defect norms of the knot's (knot, alpha) pairs.
+constexpr int kWork = 48;
+// Terms of the knot's merit and step norm, by index.
+constexpr int kTerms = 6;
+constexpr int kTErr2 = 0, kTBar = 1, kTV2 = 2, kTU2 = 3, kTCv = 4, kTNrm2 = 5;
+constexpr int kKnotFloats = 329;
+static_assert(kKnotFloats == kX + kU + kG + kDa + kMinv + kD + kQv + kSc + kJ +
+                                 kK + kKff + kDX + kDU + kWork + kTerms,
+              "kKnotFloats");
+static_assert(2 * kMaxAlphas <= kWork, "stage 4 pairs fit the work region");
 
-struct Scratch {
-  float *da, *minv, *d, *qv, *sc, *J, *K, *kff, *dX, *dU;
-  int B, lane;
-  // Element (knot k, row r) of a region with `rows` rows per knot.
-  DEV float& at(float* region, int rows, int k, int r) const {
-    return region[(static_cast<long long>(k) * rows + r) * B + lane];
-  }
+// Per-lane scalars, in the first floats of the fixed region.
+struct LaneState {
+  float rho, base_merit, scale;
+  int done;
 };
+constexpr int kState = 4;
+// Fixed region: the lane state, S (stored before its symmetrization), SA,
+// SB, Qxx, Qxu, Quu, s, Sc, qx, qu, the per-alpha merits and the wrench.
+constexpr int kFixedFloats = 684;
+static_assert(kFixedFloats ==
+                  kState + 4 + 144 * 3 + 72 * 2 + 36 + 12 * 3 + 6 + kMaxAlphas + 6,
+              "kFixedFloats");
+
+// Dynamic shared memory for horizon N (host side).
+inline long long smem_bytes(int N) {
+  return 4LL * (static_cast<long long>(N) * kKnotFloats + kFixedFloats);
+}
+
+// The block's shared arrays.  Knot k of a region with `rows` floats per
+// knot starts at region + k * rows.
+struct Smem {
+  float *X, *U, *G, *da, *minv, *d, *qv, *sc, *J, *K, *kff, *dX, *dU, *work,
+      *terms;
+  float *S, *SA, *SB, *Qxx, *Qxu, *Quu, *sv, *Sc, *qx, *qu, *merit, *w;
+  LaneState* st;
+};
+
+DEV Smem carve(float* base, int N) {
+  Smem s;
+  float* p = base;
+  s.st = reinterpret_cast<LaneState*>(p);
+  p += kState + 4;
+  s.S = p;    p += 144;
+  s.SA = p;   p += 144;
+  s.SB = p;   p += 72;
+  s.Qxx = p;  p += 144;
+  s.Qxu = p;  p += 72;
+  s.Quu = p;  p += 36;
+  s.sv = p;   p += 12;
+  s.Sc = p;   p += 12;
+  s.qx = p;   p += 12;
+  s.qu = p;   p += 6;
+  s.merit = p; p += kMaxAlphas;
+  s.w = p;    p += 6;
+  s.X = p;    p += N * kX;
+  s.U = p;    p += N * kU;
+  s.G = p;    p += N * kG;
+  s.da = p;   p += N * kDa;
+  s.minv = p; p += N * kMinv;
+  s.d = p;    p += N * kD;
+  s.qv = p;   p += N * kQv;
+  s.sc = p;   p += N * kSc;
+  s.J = p;    p += N * kJ;
+  s.K = p;    p += N * kK;
+  s.kff = p;  p += N * kKff;
+  s.dX = p;   p += N * kDX;
+  s.dU = p;   p += N * kDU;
+  s.work = p; p += N * kWork;
+  s.terms = p;
+  return s;
+}
 
 // Joint-range barrier at q: value, gradient and GN Hessian diagonal.
 DEV float barrier(const ModelConsts& m, const SolveParams& p, const float* q,
@@ -72,11 +152,13 @@ DEV float barrier(const ModelConsts& m, const SolveParams& p, const float* q,
   return cb;
 }
 
-// Gauss-Newton cost data of one knot, stored into qv/sc/J at knot k.
-// Returns err^2 and (via cb) the barrier value, for the base merit.
-DEV float cost_data(const ModelConsts& m, const SolveParams& p,
-                    const Scratch& s, int k, const float* x,
-                    const float* goal, float* cb) {
+// Stage 1a, cost item of knot k < N: Gauss-Newton cost data into qv/sc/J,
+// and err^2, the barrier value and v^2 into the knot's terms.
+DEV void cost_item(const ModelConsts& m, const SolveParams& p, const Smem& s,
+                   int k) {
+  float x[NX], goal[3];
+  for (int r = 0; r < NX; ++r) x[r] = s.X[k * kX + r];
+  for (int r = 0; r < 3; ++r) goal[r] = s.G[k * kG + r];
   float pe[3], J[3][NJ];
   ee_pos_jacobian(m, x, pe, J);
   float err[3];
@@ -87,81 +169,274 @@ DEV float cost_data(const ModelConsts& m, const SolveParams& p,
   const float twoR = 2.f * p.R * scale;
   float gb[NQ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float hb[NQ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  *cb = p.q_barrier != 0.f ? barrier(m, p, x, gb, hb) : 0.f;
+  const float cb = p.q_barrier != 0.f ? barrier(m, p, x, gb, hb) : 0.f;
+  float* qv = s.qv + k * kQv;
+  float* sc = s.sc + k * kSc;
+  float* Jk = s.J + k * kJ;
+  float v2 = 0.f;
   for (int i = 0; i < NQ; ++i) {
     const float gp = 2.f * (J[0][i] * err[0] + J[1][i] * err[1] + J[2][i] * err[2]);
-    s.at(s.qv, kQv, k, i) = gp + gb[i];
-    s.at(s.qv, kQv, k, NQ + i) = twodQ * x[NQ + i];
-    s.at(s.sc, kSc, k, 2 + i) = hb[i];
-    for (int a = 0; a < 3; ++a) s.at(s.J, kJ, k, a * NQ + i) = J[a][i];
+    qv[i] = gp + gb[i];
+    qv[NQ + i] = twodQ * x[NQ + i];
+    sc[2 + i] = hb[i];
+    for (int a = 0; a < 3; ++a) Jk[a * NQ + i] = J[a][i];
+    v2 += x[NQ + i] * x[NQ + i];
   }
-  s.at(s.sc, kSc, k, 0) = twodQ;
-  s.at(s.sc, kSc, k, 1) = twoR;
-  return err2;
+  sc[0] = twodQ;
+  sc[1] = twoR;
+  float* t = s.terms + k * kTerms;
+  t[kTErr2] = err2;
+  t[kTBar] = cb;
+  t[kTV2] = v2;
 }
 
-// Stage 1 at a running knot: dynamics linearization, defect and cost data.
-// Returns the knot's alpha = 0 merit cost; adds its defect norms to *cv.
-DEV float linearize_knot(const ModelConsts& m, const SolveParams& p,
-                         const Scratch& s, int k, const float* x,
-                         const float* u, const float* xn, const float* w,
-                         const float* goal, float* cv) {
+// Stage 1a, dynamics item of knot k < N-1: forward dynamics (a, L, invD
+// kept in the knot's work for stage 1b), dt M^-1, the Euler defect, u^2
+// and the defect norms.
+DEV void dynamics_item(const ModelConsts& m, const SolveParams& p,
+                       const Smem& s, int k) {
   const float dt = p.dt;
+  float x[NX], xn[NX], u[NU];
+  for (int r = 0; r < NX; ++r) {
+    x[r] = s.X[k * kX + r];
+    xn[r] = s.X[(k + 1) * kX + r];
+  }
+  for (int r = 0; r < NU; ++r) u[r] = s.U[k * kU + r];
   const float* q = x;
   const float* v = x + NQ;
   float fl[3], nl[3];
-  if (w != nullptr) world_wrench_to_ee(m, q, w, fl, nl);
-  const float* flp = w != nullptr ? fl : nullptr;
-  const float* nlp = w != nullptr ? nl : nullptr;
+  if (p.use_wrench) world_wrench_to_ee(m, q, s.w, fl, nl);
   float a[NJ], L[6][6], invD[6];
-  forward_dynamics(m, q, v, u, flp, nlp, a, L, invD);
-
-  // dt * M^-1 (da/du), row i*6+j = dt * Minv[i][j].
+  forward_dynamics(m, q, v, u, p.use_wrench ? fl : nullptr,
+                   p.use_wrench ? nl : nullptr, a, L, invD);
+  float* wk = s.work + k * kWork;
+  for (int i = 0; i < NJ; ++i) {
+    wk[i] = a[i];
+    for (int j = 0; j < i; ++j) wk[6 + i * 6 + j] = L[i][j];
+    wk[42 + i] = invD[i];
+  }
+  // dt * M^-1, row i*6+j = dt * Minv[i][j].
+  float* minv = s.minv + k * kMinv;
   for (int j = 0; j < NU; ++j) {
     float e[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, col[6];
     e[j] = 1.f;
     ldl6_solve(L, invD, e, col);
-    for (int i = 0; i < NU; ++i) s.at(s.minv, kMinv, k, i * NU + j) = dt * col[i];
+    for (int i = 0; i < NU; ++i) minv[i * NU + j] = dt * col[i];
   }
-
-  // dt * da/dx, row i*12+t: d RNEA(q, v, a*; f_ext(q)) / dx_t by a Dual
-  // pass, then da = -M^-1 dtau.
-  for (int t = 0; t < NX; ++t) {
-    Dual qd[NQ], vd[NQ], ad[NQ], taud[NQ], fld[3], nld[3];
-    for (int i = 0; i < NQ; ++i) {
-      qd[i] = Dual(q[i], t == i ? 1.f : 0.f);
-      vd[i] = Dual(v[i], t == NQ + i ? 1.f : 0.f);
-      ad[i] = Dual(a[i]);
-    }
-    if (w != nullptr) world_wrench_to_ee(m, qd, w, fld, nld);
-    rnea(m, qd, vd, ad, w != nullptr ? fld : nullptr,
-         w != nullptr ? nld : nullptr, taud);
-    float dtau[NQ], sol[NQ];
-    for (int i = 0; i < NQ; ++i) dtau[i] = taud[i].d;
-    ldl6_solve(L, invD, dtau, sol);
-    for (int i = 0; i < NQ; ++i) s.at(s.da, kDa, k, i * NX + t) = dt * -sol[i];
-  }
-
   // Euler defect d = [q + dt v; v + dt a] - x_{k+1}.
-  float dq2 = 0.f, dv2 = 0.f;
+  float dq2 = 0.f, dv2 = 0.f, u2 = 0.f;
   for (int i = 0; i < NQ; ++i) {
     const float dq = (q[i] + dt * v[i]) - xn[i];
     const float dv = (v[i] + dt * a[i]) - xn[NQ + i];
-    s.at(s.d, kD, k, i) = dq;
-    s.at(s.d, kD, k, NQ + i) = dv;
+    s.d[k * kD + i] = dq;
+    s.d[k * kD + NQ + i] = dv;
     dq2 += dq * dq;
     dv2 += dv * dv;
-  }
-  *cv += sqrtf(dq2) + sqrtf(dv2);
-
-  float cb;
-  const float err2 = cost_data(m, p, s, k, x, goal, &cb);
-  float v2 = 0.f, u2 = 0.f;
-  for (int i = 0; i < NQ; ++i) {
-    v2 += v[i] * v[i];
     u2 += u[i] * u[i];
   }
-  return (err2 + p.dQ * v2) + p.R * u2 + cb;
+  float* t = s.terms + k * kTerms;
+  t[kTU2] = u2;
+  t[kTCv] = sqrtf(dq2) + sqrtf(dv2);
+}
+
+// Stage 1b, item (knot k, tangent t): d RNEA(q, v, a*; f_ext(q)) / dx_t by
+// a one-tangent Dual pass, then column t of dt * da = -dt M^-1 dtau.
+DEV void tangent_item(const ModelConsts& m, const SolveParams& p,
+                      const Smem& s, int k, int t) {
+  const float* x = s.X + k * kX;
+  const float* wk = s.work + k * kWork;
+  Dual qd[NQ], vd[NQ], ad[NQ], taud[NQ], fld[3], nld[3];
+  for (int i = 0; i < NQ; ++i) {
+    qd[i] = Dual(x[i], t == i ? 1.f : 0.f);
+    vd[i] = Dual(x[NQ + i], t == NQ + i ? 1.f : 0.f);
+    ad[i] = Dual(wk[i]);
+  }
+  if (p.use_wrench) world_wrench_to_ee(m, qd, s.w, fld, nld);
+  rnea(m, qd, vd, ad, p.use_wrench ? fld : nullptr,
+       p.use_wrench ? nld : nullptr, taud);
+  float L[6][6], invD[6], dtau[NQ], sol[NQ];
+  for (int i = 0; i < NJ; ++i) {
+    for (int j = 0; j < i; ++j) L[i][j] = wk[6 + i * 6 + j];
+    invD[i] = wk[42 + i];
+    dtau[i] = taud[i].d;
+  }
+  ldl6_solve(L, invD, dtau, sol);
+  float* da = s.da + k * kDa;
+  for (int i = 0; i < NQ; ++i) da[i * NX + t] = p.dt * -sol[i];
+}
+
+// Running-knot cost Hessian entry Q[i][j] = [2 qmod J^T J + qmod diag(hb),
+// 0; 0, 2dQ I] from the knot's J (18) and sc ([2dQ, 2R, hb]).
+DEV float q_entry(const float* J, const float* sc, float qmod, int i, int j) {
+  if (i < NQ && j < NQ) {
+    const float v = J[i] * (2.f * qmod * J[j]) +
+                    J[NQ + i] * (2.f * qmod * J[NQ + j]) +
+                    J[2 * NQ + i] * (2.f * qmod * J[2 * NQ + j]);
+    return i == j ? v + qmod * sc[2 + j] : v;
+  }
+  return (i == j && i >= NQ) ? sc[0] : 0.f;
+}
+
+// Entry (i, j) of S = 0.5 (S' + S'^T), the re-symmetrized S, from the last
+// knot's S'; the terminal S (`raw`) is read as it is stored.
+DEV float sym(const float* S, bool raw, int i, int j) {
+  return (raw || i == j) ? S[i * NX + j] : 0.5f * (S[i * NX + j] + S[j * NX + i]);
+}
+
+// Row i of A^T c for A = I + [0 dt I; dt*da], c a 12-vector with stride cs.
+DEV float At_row(const float* dtda, float dt, const float* c, int cs, int i) {
+  float o = c[i * cs] + (i >= NQ ? dt * c[(i - NQ) * cs] : 0.f);
+  for (int t = 0; t < NQ; ++t) o += dtda[t * NX + i] * c[(NQ + t) * cs];
+  return o;
+}
+
+// Stage 2: the Riccati backward sweep; stores K and kff per knot.
+DEV void backward_sweep(const SolveParams& p, const Smem& s) {
+  const int N = p.N, Nm1 = N - 1, tid = threadIdx.x, nt = blockDim.x;
+  const float dt = p.dt, rho = s.st->rho;
+  {
+    const float* J = s.J + (N - 1) * kJ;
+    const float* sc = s.sc + (N - 1) * kSc;
+    const float* qv = s.qv + (N - 1) * kQv;
+    for (int e = tid; e < 144 + NX; e += nt) {
+      if (e < 144)
+        s.S[e] = q_entry(J, sc, p.QN, e / NX, e % NX);
+      else
+        s.sv[e - 144] = e - 144 < NQ ? p.QN * qv[e - 144] : qv[e - 144];
+    }
+  }
+  __syncthreads();
+  for (int k = Nm1 - 1; k >= 0; --k) {
+    const float* dtda = s.da + k * kDa;  // row u*12+j = dt * da[u][j]
+    const float* W = s.minv + k * kMinv;  // row u*6+j = dt * Minv[u][j]
+    const float* S = s.S;
+    const bool raw = k == Nm1 - 1;
+    // SA = S A (144), SB = S B with B = [0; dt M^-1] (72), Sc = S d + s (12).
+    for (int e = tid; e < 228; e += nt) {
+      if (e < 144) {
+        const int r = e / NX, j = e % NX;
+        float c = sym(S, raw, r, j);
+        if (j >= NQ) c = c + dt * sym(S, raw, r, j - NQ);
+        for (int u = 0; u < NQ; ++u) c += sym(S, raw, r, NQ + u) * dtda[u * NX + j];
+        s.SA[e] = c;
+      } else if (e < 216) {
+        const int r = (e - 144) / NU, j = (e - 144) % NU;
+        float c = 0.f;
+        for (int u = 0; u < NQ; ++u) c += sym(S, raw, r, NQ + u) * W[u * NU + j];
+        s.SB[e - 144] = c;
+      } else {
+        const int i = e - 216;
+        const float* d = s.d + k * kD;
+        float acc = 0.f;
+        for (int j = 0; j < NX; ++j) acc += sym(S, raw, i, j) * d[j];
+        s.Sc[i] = acc + s.sv[i];
+      }
+    }
+    __syncthreads();
+    // Qxx = A^T SA + Q (144), Qxu = A^T SB (72), Quu = B^T SB + (2R + rho) I
+    // (lower triangle, 21), qx = A^T Sc (12), qu = B^T Sc + 2R u (6).
+    {
+      const float* J = s.J + k * kJ;
+      const float* sc = s.sc + k * kSc;
+      const float twoR = sc[1];
+      for (int e = tid; e < 255; e += nt) {
+        if (e < 144) {
+          const int i = e / NX, j = e % NX;
+          s.Qxx[e] = At_row(dtda, dt, s.SA + j, NX, i) + q_entry(J, sc, 1.f, i, j);
+        } else if (e < 216) {
+          const int i = (e - 144) / NU, j = (e - 144) % NU;
+          s.Qxu[e - 144] = At_row(dtda, dt, s.SB + j, NU, i);
+        } else if (e < 237) {
+          int i = 0, r = e - 216;
+          while (r > i) r -= ++i;  // (i, j = r), j <= i, row-major lower
+          const int j = r;
+          float v = 0.f;
+          for (int t = 0; t < NQ; ++t) v += W[t * NU + i] * s.SB[(NQ + t) * NU + j];
+          s.Quu[i * NU + j] = i == j ? v + (twoR + rho) : v;
+        } else if (e < 249) {
+          const int i = e - 237;
+          s.qx[i] = At_row(dtda, dt, s.Sc, 1, i);
+        } else {
+          const int t = e - 249;
+          float acc = 0.f;
+          for (int u = 0; u < NQ; ++u) acc += W[u * NU + t] * s.Sc[NQ + u];
+          s.qu[t] = acc + twoR * s.U[k * kU + t];
+        }
+      }
+    }
+    __syncthreads();
+    // K = -Quu^-1 Qxu^T (12 columns), kff = -Quu^-1 qu: each of the 13
+    // solves factors Quu itself (the same bits in every thread).
+    for (int e = tid; e < NX + 1; e += nt) {
+      float M[6][6], L[6][6], invD[6], rhs[NU], sol[NU];
+      for (int i = 0; i < NU; ++i)
+        for (int j = 0; j <= i; ++j) M[i][j] = s.Quu[i * NU + j];
+      ldl6(M, L, invD);
+      for (int t = 0; t < NU; ++t) rhs[t] = e < NX ? s.Qxu[e * NU + t] : s.qu[t];
+      ldl6_solve(L, invD, rhs, sol);
+      if (e < NX)
+        for (int t = 0; t < NU; ++t) s.K[k * kK + t * NX + e] = -sol[t];
+      else
+        for (int t = 0; t < NU; ++t) s.kff[k * kKff + t] = -sol[t];
+    }
+    __syncthreads();
+    // S' = Qxx + Qxu K (144), symmetrized where the next knot reads it;
+    // s = qx + q + Qxu kff (12).
+    {
+      const float* K = s.K + k * kK;
+      const float* kff = s.kff + k * kKff;
+      const float* qv = s.qv + k * kQv;
+      for (int e = tid; e < 144 + NX; e += nt) {
+        if (e < 144) {
+          const int i = e / NX, j = e % NX;
+          float acc = s.Qxx[e];
+          for (int t = 0; t < NU; ++t) acc += s.Qxu[i * NU + t] * K[t * NX + j];
+          s.S[e] = acc;
+        } else {
+          const int i = e - 144;
+          float acc = s.qx[i] + qv[i];
+          for (int t = 0; t < NU; ++t) acc += s.Qxu[i * NU + t] * kff[t];
+          s.sv[i] = acc;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Stage 3: forward rollout of the delta policy from dx0 = 0.
+DEV void forward_rollout(const SolveParams& p, const Smem& s) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float dt = p.dt;
+  for (int i = tid; i < NX; i += nt) s.dX[i] = 0.f;
+  __syncthreads();
+  for (int k = 0; k < p.N - 1; ++k) {
+    const float* dx = s.dX + k * kDX;
+    for (int i = tid; i < NX; i += nt) {
+      // du = K dx + kff, the same bits in each of the 12 threads.
+      float du[NU];
+      for (int t = 0; t < NU; ++t) {
+        const float* K = s.K + k * kK + t * NX;
+        float acc = 0.f;
+        for (int j = 0; j < NX; ++j) acc += K[j] * dx[j];
+        du[t] = acc + s.kff[k * kKff + t];
+      }
+      if (i < NU) s.dU[k * kDU + i] = du[i];
+      float dxn;
+      if (i < NQ) {
+        dxn = dx[i] + dt * dx[NQ + i];
+      } else {
+        const float* da = s.da + k * kDa + (i - NQ) * NX;
+        const float* W = s.minv + k * kMinv + (i - NQ) * NU;
+        float acc = dx[i];
+        for (int j = 0; j < NX; ++j) acc += da[j] * dx[j];
+        for (int j = 0; j < NU; ++j) acc += W[j] * du[j];
+        dxn = acc;
+      }
+      s.dX[(k + 1) * kDX + i] = dxn + s.d[k * kD + i];
+    }
+    __syncthreads();
+  }
 }
 
 // Merit cost of one knot state: qmod * (err^2 + barrier) + dQ v^2.
@@ -180,367 +455,200 @@ DEV float merit_knot_cost(const ModelConsts& m, const SolveParams& p,
   return qmod * pos + p.dQ * v2;
 }
 
-// (A^T c)[i] for A = I + [0 dt I; dt*da]: c (12) in, out (12).
-DEV void At_apply(const float (*dtda)[NX], float dt, const float* c, float* out) {
-  for (int i = 0; i < NX; ++i) {
-    float o = c[i] + (i >= NQ ? dt * c[i - NQ] : 0.f);
-    for (int t = 0; t < NQ; ++t) o += dtda[t][i] * c[NQ + t];
-    out[i] = o;
-  }
-}
-
-// Running-knot cost Hessian Q = [2 qmod J^T J + qmod diag(hb), 0; 0, 2dQ I].
-DEV float q_entry(const float (*J)[NJ], const float* hb, float twodQ,
-                  float qmod, int i, int j) {
-  if (i < NQ && j < NQ) {
-    float v = J[0][i] * (2.f * qmod * J[0][j]) + J[1][i] * (2.f * qmod * J[1][j]) +
-              J[2][i] * (2.f * qmod * J[2][j]);
-    return i == j ? v + qmod * hb[j] : v;
-  }
-  return (i == j && i >= NQ) ? twodQ : 0.f;
-}
-
-DEV void load_cost_hessian(const Scratch& s, int k, float (*J)[NJ], float* hb,
-                           float* twodQ, float* twoR) {
-  for (int a = 0; a < 3; ++a)
-    for (int i = 0; i < NQ; ++i) J[a][i] = s.at(s.J, kJ, k, a * NQ + i);
-  for (int i = 0; i < NQ; ++i) hb[i] = s.at(s.sc, kSc, k, 2 + i);
-  *twodQ = s.at(s.sc, kSc, k, 0);
-  *twoR = s.at(s.sc, kSc, k, 1);
-}
-
-// Stage 2: the Riccati backward sweep; stores K and kff per knot.
-DEV void backward_sweep(const SolveParams& p, const Scratch& s, float rho,
-                        const float* Uo, int lane) {
-  const int N = p.N, Nm1 = N - 1, B = p.B;
-  const float dt = p.dt, QN = p.QN;
-  float S[NX][NX], sv[NX];
-  {
-    float J[3][NJ], hb[NQ], twodQ, twoR;
-    load_cost_hessian(s, N - 1, J, hb, &twodQ, &twoR);
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NX; ++j) S[i][j] = q_entry(J, hb, twodQ, QN, i, j);
+// Stage 4, item (knot k, alpha c): the candidate's merit cost and, for a
+// running knot, its Euler defect norms under the lane wrench.
+DEV void line_search_item(const ModelConsts& m, const SolveParams& p,
+                          const Smem& s, int k, int c) {
+  const int Nm1 = p.N - 1;
+  const float alpha = ldexpf(1.f, -c);
+  const float* goal = s.G + k * kG;
+  float xc[NX], cost, cv = 0.f;
+  for (int r = 0; r < NX; ++r) xc[r] = s.X[k * kX + r] + alpha * s.dX[k * kDX + r];
+  if (k == Nm1) {
+    cost = merit_knot_cost(m, p, xc, goal, p.QN);
+  } else {
+    const float dt = p.dt;
+    float xnc[NX], uc[NU], u2 = 0.f;
+    for (int r = 0; r < NX; ++r)
+      xnc[r] = s.X[(k + 1) * kX + r] + alpha * s.dX[(k + 1) * kDX + r];
+    for (int r = 0; r < NU; ++r) {
+      uc[r] = s.U[k * kU + r] + alpha * s.dU[k * kDU + r];
+      u2 += uc[r] * uc[r];
+    }
+    cost = merit_knot_cost(m, p, xc, goal, 1.f) + p.R * u2;
+    float fl[3], nl[3], acc[NJ], L[6][6], invD[6];
+    if (p.use_wrench) world_wrench_to_ee(m, xc, s.w, fl, nl);
+    forward_dynamics(m, xc, xc + NQ, uc, p.use_wrench ? fl : nullptr,
+                     p.use_wrench ? nl : nullptr, acc, L, invD);
+    float dq2 = 0.f, dv2 = 0.f;
     for (int i = 0; i < NQ; ++i) {
-      sv[i] = QN * s.at(s.qv, kQv, N - 1, i);
-      sv[NQ + i] = s.at(s.qv, kQv, N - 1, NQ + i);
+      const float eq = (xc[i] + dt * xc[NQ + i]) - xnc[i];
+      const float ev = (xc[NQ + i] + dt * acc[i]) - xnc[NQ + i];
+      dq2 += eq * eq;
+      dv2 += ev * ev;
     }
+    cv = sqrtf(dq2) + sqrtf(dv2);
   }
-  for (int k = Nm1 - 1; k >= 0; --k) {
-    float dtda[NQ][NX], W[NQ][NU], d[NX];
-    for (int i = 0; i < NQ; ++i) {
-      for (int j = 0; j < NX; ++j) dtda[i][j] = s.at(s.da, kDa, k, i * NX + j);
-      for (int j = 0; j < NU; ++j) W[i][j] = s.at(s.minv, kMinv, k, i * NU + j);
-    }
-    for (int i = 0; i < NX; ++i) d[i] = s.at(s.d, kD, k, i);
-    float J[3][NJ], hb[NQ], twodQ, twoR;
-    load_cost_hessian(s, k, J, hb, &twodQ, &twoR);
-
-    // Sc = S d + s.
-    float Sc[NX];
-    for (int i = 0; i < NX; ++i) {
-      float acc = 0.f;
-      for (int j = 0; j < NX; ++j) acc += S[i][j] * d[j];
-      Sc[i] = acc + sv[i];
-    }
-    // Qxx = A^T (S A) + Q, column by column.
-    float Qxx[NX][NX];
-    for (int j = 0; j < NX; ++j) {
-      float col[NX], out[NX];
-      for (int r = 0; r < NX; ++r) {
-        float c = j < NQ ? S[r][j] : S[r][j] + dt * S[r][j - NQ];
-        for (int u = 0; u < NQ; ++u) c += S[r][NQ + u] * dtda[u][j];
-        col[r] = c;
-      }
-      At_apply(dtda, dt, col, out);
-      for (int i = 0; i < NX; ++i) Qxx[i][j] = out[i] + q_entry(J, hb, twodQ, 1.f, i, j);
-    }
-    // SB = S B (B = [0; dt M^-1]) and Qxu = A^T S B.
-    float SB[NX][NU], Qxu[NX][NU];
-    for (int j = 0; j < NU; ++j) {
-      float col[NX], out[NX];
-      for (int r = 0; r < NX; ++r) {
-        float c = 0.f;
-        for (int u = 0; u < NQ; ++u) c += S[r][NQ + u] * W[u][j];
-        col[r] = c;
-        SB[r][j] = c;
-      }
-      At_apply(dtda, dt, col, out);
-      for (int i = 0; i < NX; ++i) Qxu[i][j] = out[i];
-    }
-    // Quu = B^T S B + (2R + rho) I (lower triangle, mirrored).
-    float Quu[NU][NU];
-    for (int i = 0; i < NU; ++i)
-      for (int j = 0; j <= i; ++j) {
-        float v = 0.f;
-        for (int t = 0; t < NQ; ++t) v += W[t][i] * SB[NQ + t][j];
-        Quu[i][j] = i == j ? v + (twoR + rho) : v;
-        Quu[j][i] = Quu[i][j];
-      }
-    float L[6][6], invD[6];
-    ldl6(Quu, L, invD);
-
-    // K = -Quu^-1 Qxu^T, kff = -Quu^-1 (B^T Sc + 2R u).
-    float K[NU][NX], kff[NU];
-    for (int j = 0; j < NX; ++j) {
-      float sol[NU];
-      ldl6_solve(L, invD, Qxu[j], sol);
-      for (int t = 0; t < NU; ++t) K[t][j] = -sol[t];
-    }
-    {
-      float qu[NU], sol[NU];
-      for (int t = 0; t < NU; ++t) {
-        float acc = 0.f;
-        for (int u = 0; u < NQ; ++u) acc += W[u][t] * Sc[NQ + u];
-        qu[t] = acc + twoR * Uo[(static_cast<long long>(k) * NU + t) * B + lane];
-      }
-      ldl6_solve(L, invD, qu, sol);
-      for (int t = 0; t < NU; ++t) kff[t] = -sol[t];
-    }
-    for (int t = 0; t < NU; ++t) {
-      for (int j = 0; j < NX; ++j) s.at(s.K, kK, k, t * NX + j) = K[t][j];
-      s.at(s.kff, kKff, k, t) = kff[t];
-    }
-
-    // qx = A^T Sc + q; S = sym(Qxx + Qxu K); s = qx + Qxu kff.
-    float qx[NX];
-    At_apply(dtda, dt, Sc, qx);
-    for (int i = 0; i < NX; ++i) {
-      float acc = qx[i] + s.at(s.qv, kQv, k, i);
-      for (int t = 0; t < NU; ++t) acc += Qxu[i][t] * kff[t];
-      sv[i] = acc;
-    }
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NX; ++j) {
-        float acc = Qxx[i][j];
-        for (int t = 0; t < NU; ++t) acc += Qxu[i][t] * K[t][j];
-        S[i][j] = acc;
-      }
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < i; ++j) {
-        const float sym = 0.5f * (S[i][j] + S[j][i]);
-        S[i][j] = sym;
-        S[j][i] = sym;
-      }
-  }
+  s.work[k * kWork + c] = cost;
+  s.work[k * kWork + kMaxAlphas + c] = cv;
 }
 
-// Stage 3: forward rollout of the delta policy from dx0 = 0.
-DEV void forward_rollout(const SolveParams& p, const Scratch& s) {
-  const float dt = p.dt;
-  float dx[NX];
-  for (int i = 0; i < NX; ++i) {
-    dx[i] = 0.f;
-    s.at(s.dX, kDX, 0, i) = 0.f;
+// The alpha = 0 merit from stage 1's terms, summed in knot order.
+DEV float base_merit(const SolveParams& p, const Smem& s) {
+  const int Nm1 = p.N - 1;
+  float cost = 0.f, cv = 0.f;
+  for (int k = 0; k < Nm1; ++k) {
+    const float* t = s.terms + k * kTerms;
+    cost += ((t[kTErr2] + p.dQ * t[kTV2]) + p.R * t[kTU2]) + t[kTBar];
+    cv += t[kTCv];
   }
-  for (int k = 0; k < p.N - 1; ++k) {
-    float du[NU];
-    for (int t = 0; t < NU; ++t) {
-      float acc = 0.f;
-      for (int j = 0; j < NX; ++j) acc += s.at(s.K, kK, k, t * NX + j) * dx[j];
-      du[t] = acc + s.at(s.kff, kKff, k, t);
-      s.at(s.dU, kDU, k, t) = du[t];
-    }
-    float dxn[NX];
-    for (int i = 0; i < NQ; ++i) dxn[i] = dx[i] + dt * dx[NQ + i];
-    for (int i = 0; i < NQ; ++i) {
-      float acc = dx[NQ + i];
-      for (int j = 0; j < NX; ++j) acc += s.at(s.da, kDa, k, i * NX + j) * dx[j];
-      for (int j = 0; j < NU; ++j) acc += s.at(s.minv, kMinv, k, i * NU + j) * du[j];
-      dxn[NQ + i] = acc;
-    }
-    for (int i = 0; i < NX; ++i) {
-      dx[i] = dxn[i] + s.at(s.d, kD, k, i);
-      s.at(s.dX, kDX, k + 1, i) = dx[i];
-    }
-  }
+  const float* t = s.terms + Nm1 * kTerms;
+  const float bc_T = p.QN * t[kTErr2] + p.dQ * t[kTV2] + p.QN * t[kTBar];
+  return (cost + bc_T) + p.merit_mu * cv;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
            const float* __restrict__ goals, const float* __restrict__ X,
            const float* __restrict__ U, const float* __restrict__ w,
            const float* __restrict__ rho_in, float* __restrict__ Xo,
            float* __restrict__ Uo, float* __restrict__ rho_out,
-           float* __restrict__ alpha_log, float* __restrict__ step_log,
-           float* __restrict__ scratch) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+           float* __restrict__ alpha_log, float* __restrict__ step_log) {
+  extern __shared__ float smem[];
+  const int lane = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int B = p.B, N = p.N, Nm1 = N - 1, NA = p.num_alphas;
-  if (lane >= B) return;
-  const float dt = p.dt, mu = p.merit_mu;
+  const long long nB = B;
+  const Smem s = carve(smem, N);
 
-  Scratch s;
-  s.B = B;
-  s.lane = lane;
-  const long long nB = static_cast<long long>(B);
-  s.da = scratch;
-  s.minv = s.da + Nm1 * kDa * nB;
-  s.d = s.minv + Nm1 * kMinv * nB;
-  s.qv = s.d + Nm1 * kD * nB;
-  s.sc = s.qv + N * kQv * nB;
-  s.J = s.sc + N * kSc * nB;
-  s.K = s.J + N * kJ * nB;
-  s.kff = s.K + Nm1 * kK * nB;
-  s.dX = s.kff + Nm1 * kKff * nB;
-  s.dU = s.dX + N * kDX * nB;
-
-  auto xi = [&](int k, int r) { return (static_cast<long long>(k) * NX + r) * B + lane; };
-  auto ui = [&](int k, int r) { return (static_cast<long long>(k) * NU + r) * B + lane; };
-  auto gi = [&](int k, int r) { return (static_cast<long long>(k) * 3 + r) * B + lane; };
-
-  for (int k = 0; k < N; ++k)
-    for (int r = 0; r < NX; ++r) Xo[xi(k, r)] = k == 0 ? xs[r * B + lane] : X[xi(k, r)];
-  for (int k = 0; k < Nm1; ++k)
-    for (int r = 0; r < NU; ++r) Uo[ui(k, r)] = U[ui(k, r)];
-  float wl[6];
-  const float* wp = nullptr;
-  if (p.use_wrench) {
-    for (int i = 0; i < 6; ++i) wl[i] = w[i * B + lane];
-    wp = wl;
+  // Gather the lane's trajectory, goals and wrench (stride B in global).
+  for (int e = tid; e < N * kX; e += nt)
+    s.X[e] = e < kX ? xs[e * nB + lane] : X[e * nB + lane];
+  for (int e = tid; e < Nm1 * kU; e += nt) s.U[e] = U[e * nB + lane];
+  for (int e = tid; e < N * kG; e += nt) s.G[e] = goals[e * nB + lane];
+  if (p.use_wrench)
+    for (int e = tid; e < 6; e += nt) s.w[e] = w[e * nB + lane];
+  if (tid == 0) {
+    s.st->rho = rho_in[lane];
+    s.st->done = 0;
   }
-  float rho = rho_in[lane];
-  bool done = false;
+  __syncthreads();
 
   for (int it = 0; it < p.max_iters; ++it) {
-    // ---- Stage 1: linearize + cost data; the alpha = 0 merit ----
-    float base_cost = 0.f, base_cv = 0.f;
-    for (int k = 0; k < Nm1; ++k) {
-      float x[NX], xn[NX], u[NU], goal[3];
-      for (int r = 0; r < NX; ++r) {
-        x[r] = Xo[xi(k, r)];
-        xn[r] = Xo[xi(k + 1, r)];
-      }
-      for (int r = 0; r < NU; ++r) u[r] = Uo[ui(k, r)];
-      for (int r = 0; r < 3; ++r) goal[r] = goals[gi(k, r)];
-      base_cost += linearize_knot(m, p, s, k, x, u, xn, wp, goal, &base_cv);
+    // ---- Stage 1a: dynamics of knots 0..N-2, cost data of knots 0..N-1 ----
+    for (int e = tid; e < Nm1 + N; e += nt) {
+      if (e < Nm1)
+        dynamics_item(m, p, s, e);
+      else
+        cost_item(m, p, s, e - Nm1);
     }
-    float bc_T;
-    {
-      float x[NX], goal[3], cb;
-      for (int r = 0; r < NX; ++r) x[r] = Xo[xi(Nm1, r)];
-      for (int r = 0; r < 3; ++r) goal[r] = goals[gi(Nm1, r)];
-      const float err2 = cost_data(m, p, s, Nm1, x, goal, &cb);
-      float v2 = 0.f;
-      for (int i = 0; i < NQ; ++i) v2 += x[NQ + i] * x[NQ + i];
-      bc_T = p.QN * err2 + p.dQ * v2 + p.QN * cb;
+    __syncthreads();
+    // ---- Stage 1b: the (knot, tangent) pairs; the last thread first sums
+    // the alpha = 0 merit ----
+    if (tid == nt - 1) s.st->base_merit = base_merit(p, s);
+    for (int e = tid; e < Nm1 * NX; e += nt) tangent_item(m, p, s, e / NX, e % NX);
+    __syncthreads();
+
+    if (p.stages >= 2) {
+      // ---- Stage 2: Riccati sweep; stage 3: rollout (each ends on a
+      // barrier) ----
+      backward_sweep(p, s);
+      if (p.stages >= 3) forward_rollout(p, s);
     }
-    const float base_merit = (base_cost + bc_T) + mu * base_cv;
-
-    // ---- Stages 2 and 3: Riccati sweep and rollout ----
-    backward_sweep(p, s, rho, Uo, lane);
-    forward_rollout(p, s);
-
-    // ---- Stage 4: merit line search over the alphas ----
-    float cost[kMaxAlphas], cv[kMaxAlphas];
-    for (int c = 0; c < NA; ++c) cost[c] = cv[c] = 0.f;
-    for (int k = 0; k < Nm1; ++k) {
-      float x[NX], xn[NX], u[NU], dx[NX], dxn[NX], du[NU], goal[3];
-      for (int r = 0; r < NX; ++r) {
-        x[r] = Xo[xi(k, r)];
-        xn[r] = Xo[xi(k + 1, r)];
-        dx[r] = s.at(s.dX, kDX, k, r);
-        dxn[r] = s.at(s.dX, kDX, k + 1, r);
+    if (p.stages < 4) {  // profiling cut: no line search, no update
+      if (tid == 0) {
+        alpha_log[it * nB + lane] = 0.f;
+        step_log[it * nB + lane] = 0.f;
       }
-      for (int r = 0; r < NU; ++r) {
-        u[r] = Uo[ui(k, r)];
-        du[r] = s.at(s.dU, kDU, k, r);
-      }
-      for (int r = 0; r < 3; ++r) goal[r] = goals[gi(k, r)];
-      for (int c = 0; c < NA; ++c) {
-        const float alpha = ldexpf(1.f, -c);
-        float xc[NX], xnc[NX], uc[NU];
-        for (int r = 0; r < NX; ++r) {
-          xc[r] = x[r] + alpha * dx[r];
-          xnc[r] = xn[r] + alpha * dxn[r];
+      continue;
+    }
+
+    // ---- Stage 4: the (knot, alpha) pairs, then the per-alpha merits and
+    // the per-knot step norms ----
+    for (int e = tid; e < N * NA; e += nt) line_search_item(m, p, s, e / NA, e % NA);
+    __syncthreads();
+    for (int e = tid; e < NA + N; e += nt) {
+      if (e < NA) {
+        float cost = 0.f, cv = 0.f;
+        for (int k = 0; k < Nm1; ++k) {
+          cost += s.work[k * kWork + e];
+          cv += s.work[k * kWork + kMaxAlphas + e];
         }
-        float u2 = 0.f;
-        for (int r = 0; r < NU; ++r) {
-          uc[r] = u[r] + alpha * du[r];
-          u2 += uc[r] * uc[r];
-        }
-        cost[c] += merit_knot_cost(m, p, xc, goal, 1.f) + p.R * u2;
-        float fl[3], nl[3], acc[NJ], L[6][6], invD[6];
-        if (wp != nullptr) world_wrench_to_ee(m, xc, wp, fl, nl);
-        forward_dynamics(m, xc, xc + NQ, uc, wp != nullptr ? fl : nullptr,
-                         wp != nullptr ? nl : nullptr, acc, L, invD);
-        float dq2 = 0.f, dv2 = 0.f;
-        for (int i = 0; i < NQ; ++i) {
-          const float eq = (xc[i] + dt * xc[NQ + i]) - xnc[i];
-          const float ev = (xc[NQ + i] + dt * acc[i]) - xnc[NQ + i];
-          dq2 += eq * eq;
-          dv2 += ev * ev;
-        }
-        cv[c] += sqrtf(dq2) + sqrtf(dv2);
+        cost += s.work[Nm1 * kWork + e];
+        s.merit[e] = cost + p.merit_mu * cv;
+      } else {
+        const int k = e - NA;
+        float n2 = 0.f;
+        for (int r = 0; r < NX; ++r) n2 += s.dX[k * kDX + r] * s.dX[k * kDX + r];
+        if (k < Nm1)
+          for (int r = 0; r < NU; ++r) n2 += s.dU[k * kDU + r] * s.dU[k * kDU + r];
+        s.terms[k * kTerms + kTNrm2] = n2;
       }
     }
-    {
-      float x[NX], dx[NX], goal[3];
-      for (int r = 0; r < NX; ++r) {
-        x[r] = Xo[xi(Nm1, r)];
-        dx[r] = s.at(s.dX, kDX, Nm1, r);
-      }
-      for (int r = 0; r < 3; ++r) goal[r] = goals[gi(Nm1, r)];
-      for (int c = 0; c < NA; ++c) {
-        const float alpha = ldexpf(1.f, -c);
-        float xc[NX];
-        for (int r = 0; r < NX; ++r) xc[r] = x[r] + alpha * dx[r];
-        cost[c] += merit_knot_cost(m, p, xc, goal, p.QN);
-      }
+    __syncthreads();
+    if (tid == 0) {
+      LaneState& st = *s.st;
+      float alpha = 0.f;
+      for (int c = NA - 1; c >= 0; --c)
+        if (s.merit[c] <= st.base_merit) alpha = ldexpf(1.f, -c);
+      const bool done = st.done != 0;
+      const bool take = !done && alpha > 0.f;
+      const float scale = take ? alpha : 0.f;
+      float nrm2 = 0.f;
+      for (int k = 0; k < N; ++k) nrm2 += s.terms[k * kTerms + kTNrm2];
+      const float step = scale * sqrtf(nrm2);
+      alpha_log[it * nB + lane] = done ? 0.f : alpha;
+      step_log[it * nB + lane] = step;
+      const bool rejected = !done && alpha <= 0.f;
+      st.rho = fminf(fmaxf(rejected ? st.rho * p.rho_factor : st.rho, p.rho_min),
+                     p.rho_max);
+      st.done = (done || (take && step < p.step_tol)) ? 1 : 0;
+      st.scale = scale;
     }
-    float alpha = 0.f;
-    for (int c = NA - 1; c >= 0; --c)
-      if (cost[c] + mu * cv[c] <= base_merit) alpha = ldexpf(1.f, -c);
-
-    const bool take = !done && alpha > 0.f;
-    const float scale = take ? alpha : 0.f;
-    float nrm2 = 0.f;
-    for (int k = 0; k < N; ++k)
-      for (int r = 0; r < NX; ++r) {
-        const float v = s.at(s.dX, kDX, k, r);
-        nrm2 += v * v;
-      }
-    for (int k = 0; k < Nm1; ++k)
-      for (int r = 0; r < NU; ++r) {
-        const float v = s.at(s.dU, kDU, k, r);
-        nrm2 += v * v;
-      }
-    const float step = scale * sqrtf(nrm2);
-    for (int k = 0; k < N; ++k)
-      for (int r = 0; r < NX; ++r) Xo[xi(k, r)] += scale * s.at(s.dX, kDX, k, r);
-    for (int k = 0; k < Nm1; ++k)
-      for (int r = 0; r < NU; ++r) Uo[ui(k, r)] += scale * s.at(s.dU, kDU, k, r);
-    alpha_log[static_cast<long long>(it) * B + lane] = done ? 0.f : alpha;
-    step_log[static_cast<long long>(it) * B + lane] = step;
-
-    const bool rejected = !done && alpha <= 0.f;
-    rho = fminf(fmaxf(rejected ? rho * p.rho_factor : rho, p.rho_min), p.rho_max);
-    done = done || (take && step < p.step_tol);
+    __syncthreads();
+    const float scale = s.st->scale;
+    for (int e = tid; e < N * kX; e += nt) s.X[e] += scale * s.dX[e];
+    for (int e = tid; e < Nm1 * kU; e += nt) s.U[e] += scale * s.dU[e];
+    __syncthreads();
   }
-  rho_out[lane] = rho;
+
+  // Scatter the lane's result.
+  for (int e = tid; e < N * kX; e += nt) Xo[e * nB + lane] = s.X[e];
+  for (int e = tid; e < Nm1 * kU; e += nt) Uo[e * nB + lane] = s.U[e];
+  if (tid == 0) rho_out[lane] = s.st->rho;
 }
 
 }  // namespace indy7
 
-// Launches K1 on `stream`; returns cudaGetLastError() of the launch.
+// Lets K1 take up to kSmemLimit bytes of dynamic shared memory on the
+// current device: set once per device, not on every launch.
+static cudaError_t allow_shared_memory() {
+  static std::atomic<unsigned long long> done{0};  // one bit per device < 64
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
+  if (bit != 0 && (done.load() & bit) != 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(indy7::sqp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             indy7::kSmemLimit);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+// Launches K1 on `stream`, one block of `threads` threads per lane (a
+// multiple of 32, at most 256).  Returns a CUDA error code.
 extern "C" int indy7_sqp_solve(indy7::ModelConsts m, indy7::SolveParams p,
                                const float* xs, const float* goals,
                                const float* X, const float* U, const float* w,
                                const float* rho_in, float* Xo, float* Uo,
                                float* rho_out, float* alpha_log,
-                               float* step_log, float* scratch, void* stream) {
-  const int blocks = (p.B + indy7::kThreads - 1) / indy7::kThreads;
-  indy7::sqp_kernel<<<blocks, indy7::kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      m, p, xs, goals, X, U, w, rho_in, Xo, Uo, rho_out, alpha_log, step_log,
-      scratch);
+                               float* step_log, int threads, void* stream) {
+  const long long bytes = indy7::smem_bytes(p.N);
+  if (threads < indy7::kWarp || threads > indy7::kMaxThreads ||
+      threads % indy7::kWarp != 0 || bytes > indy7::kSmemLimit ||
+      p.num_alphas > indy7::kMaxAlphas)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_shared_memory();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  indy7::sqp_kernel<<<p.B, threads, bytes, static_cast<cudaStream_t>(stream)>>>(m, p, xs, goals, X, U, w, rho_in, Xo, Uo, rho_out, alpha_log, step_log);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Floats of scratch K1 needs for horizon N and B lanes.
-extern "C" long long indy7_sqp_scratch_floats(int N, int B) {
-  const long long Nm1 = N - 1;
-  return (Nm1 * (indy7::kDa + indy7::kMinv + indy7::kD + indy7::kK +
-                 indy7::kKff + indy7::kDU) +
-          static_cast<long long>(N) *
-              (indy7::kQv + indy7::kSc + indy7::kJ + indy7::kDX)) *
-         B;
 }

@@ -32,6 +32,7 @@ class SolveParams(ctypes.Structure):
     ] + [
         (n, _I) for n in (
             "regularize", "max_iters", "num_alphas", "N", "B", "use_wrench",
+            "stages",
         )
     ]
 
@@ -53,7 +54,7 @@ def model_consts(sm: StaticModel) -> ModelConsts:
 
 def solve_params(
     cost: CostConfig, sqp: SQPConfig, dt: float, N: int, B: int,
-    use_wrench: bool,
+    use_wrench: bool, stages: int = 4,
 ) -> SolveParams:
     return SolveParams(
         dt=dt, dQ=cost.dQ, R=cost.R, QN=cost.QN, eps=cost.eps,
@@ -62,6 +63,7 @@ def solve_params(
         rho_max=sqp.rho_max, rho_factor=sqp.rho_factor,
         regularize=int(cost.regularize), max_iters=sqp.max_iters,
         num_alphas=sqp.num_alphas, N=N, B=B, use_wrench=int(use_wrench),
+        stages=stages,
     )
 
 

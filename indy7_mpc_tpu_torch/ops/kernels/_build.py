@@ -90,10 +90,10 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its C signatures."""
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
-    lib.indy7_sqp_solve.argtypes = [_abi.ModelConsts, _abi.SolveParams] + [ptr] * 13
+    lib.indy7_sqp_solve.argtypes = [_abi.ModelConsts, _abi.SolveParams] + [ptr] * 11 + [
+        ctypes.c_int, ptr,
+    ]
     lib.indy7_sqp_solve.restype = ctypes.c_int
-    lib.indy7_sqp_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.indy7_sqp_scratch_floats.restype = ctypes.c_longlong
     lib.indy7_tick_epilogue.argtypes = [
         _abi.ModelConsts, _abi.ModelConsts, _abi.PlantParams,
     ] + [ptr] * 14

@@ -16,8 +16,9 @@ Tick semantics mirror ``GATO_Controller.joint_callback``
     to +-20 N, and is published to the plant (:236-239);
   * watchdog exit after 10 s without a plant state (:297-303).
 
-The controller's state is float32 on its ``device``; on CUDA each tick
-launches the SQP kernel (K1) once and the tick-epilogue kernel (K2) once.
+The controller's state is float32 on its ``device``, the card unless the
+caller passes ``device="cpu"``; on CUDA each tick launches the SQP kernel
+(K1) once and the tick-epilogue kernel (K2) once.
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ class SampledController:
         seed: int = 42,
         f_ext_actual=None,
         warmup: bool = True,
-        device="cpu",
+        device="cuda",
     ):
         self.device = torch.device(device)
         self.model = model

@@ -3,7 +3,9 @@
 There is no nvcc here, so these pin what can be checked on the CPU: the
 loader raises instead of falling back, the nvcc command targets sm_90a and
 compiles only the package's csrc/ sources, the ctypes mirrors match the C
-structs, and the wrappers refuse devices they have no path for.
+structs, K1's shared-memory layout matches its source and bounds the
+horizon before any launch, and the wrappers refuse devices and options
+they have no path for.
 """
 import ctypes
 import re
@@ -16,8 +18,11 @@ from indy7_mpc_tpu_torch.config import CostConfig, PlantConfig, SQPConfig
 from indy7_mpc_tpu_torch.models import indy7
 from indy7_mpc_tpu_torch.ops import lane_rbd as LR
 from indy7_mpc_tpu_torch.ops.kernels import _abi, _build
+from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
 from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+from indy7_mpc_tpu_torch.roofline import _Dual, bound_ms, count_flops, k1_work, tensor_bytes
 from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import tick_epilogue
+from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
 
 
 def test_no_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
@@ -86,3 +91,80 @@ def test_wrappers_refuse_other_devices():
         sqp_solve(sm, CostConfig(), SQPConfig(), 0.01, m(12, B), m(N, 3, B), m(N, 12, B), m(N - 1, 6, B))
     with pytest.raises(ValueError, match="unsupported device"):
         tick_epilogue(sm, sm, PlantConfig(), 0.01, m(12), m(12), m(6), m(6, B), m(6, B), m(6))
+
+
+def test_sqp_shared_memory_layout_mirrors_the_source():
+    """The wrapper's per-knot and fixed shared floats and the block limit
+    are the kernel's constants (kKnotFloats, kFixedFloats, kSmemLimit)."""
+    text = (_build.CSRC_DIR / "sqp_kernel.cu").read_text()
+    const = lambda name: int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
+    assert (K1.KNOT_FLOATS, K1.FIXED_FLOATS, K1.SMEM_LIMIT) == (
+        const("kKnotFloats"), const("kFixedFloats"), const("kSmemLimit"))
+    assert K1.MAX_ALPHAS == const("kMaxAlphas")
+
+
+def test_sqp_horizon_limit():
+    """N=64 fits a block's 232,448 bytes; the largest horizon is N=174;
+    one more raises ValueError before any launch (no global fallback)."""
+    assert K1.shared_bytes(64) == 86_960 <= K1.SMEM_LIMIT == 232_448
+    assert K1.MAX_N == 174
+    assert K1.check_horizon(K1.MAX_N) == K1.shared_bytes(174) <= K1.SMEM_LIMIT
+    assert K1.shared_bytes(K1.MAX_N + 1) > K1.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        K1.check_horizon(K1.MAX_N + 1)
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3])
+def test_sqp_stage_cut_raises_on_the_cpu(stages):
+    """The plain version has no profiling cut: stages < 4 raises on CPU."""
+    sm = LR.static_model(indy7(torch.float32))
+    B, N = 2, 3
+    z = lambda *s: torch.zeros(s)
+    with pytest.raises(ValueError, match="no stage cut"):
+        sqp_solve(sm, CostConfig(), SQPConfig(), 0.01, z(12, B), z(N, 3, B), z(N, 12, B),
+                  z(N - 1, 6, B), stages=stages)
+
+
+def test_solve_params_carry_the_stage_cut():
+    p = _abi.solve_params(CostConfig(), SQPConfig(), 0.01, 8, 4, True)
+    assert p.stages == 4 and p.use_wrench == 1
+    assert _abi.solve_params(CostConfig(), SQPConfig(), 0.01, 8, 4, False, 2).stages == 2
+    assert [f for f, _ in _abi.SolveParams._fields_][-1] == "stages"
+
+
+def test_roofline_counts_and_bound():
+    """The operation counter on known work, and the bound's two sides."""
+    a, b = torch.ones(3, 4), torch.ones(4, 5)
+    assert count_flops(torch.mm, a, b) == 2 * 3 * 4 * 5
+    assert count_flops(lambda x: (x * 2.0 + 1.0).sum(), a) == 12 + 12 + 12
+    assert count_flops(lambda x: x.clone().reshape(-1)[:2], a) == 0
+    assert tensor_bytes([a, None, b.double()]) == 12 * 4 + 20 * 8
+    ms, by = bound_ms(67_000_000_000, 1)
+    assert by == "operations" and ms == pytest.approx(1.0)
+    ms, by = bound_ms(1, 3_350_000_000)
+    assert by == "bytes" and ms == pytest.approx(1.0)
+
+
+def test_k1_work_counts_the_kernels_arithmetic():
+    """K1's work is the kernel's own arithmetic: the Dual costs what
+    csrc/rbd.cuh's does (two multiplications by a plain operand, three and
+    an add by a Dual), the count is linear in lanes and iterations, lower
+    than the plain version's (forward AD with zero-tangent constants, the
+    alpha = 0 candidate, dense Riccati products) and lower again without
+    the wrench; the bytes read the inputs and write the outputs once."""
+    c, x, t = torch.tensor(2.0), torch.ones(1), torch.ones(1)
+    assert count_flops(lambda: c * _Dual(x, t)) == 2
+    assert count_flops(lambda: _Dual(x, t) * _Dual(x, t)) == 4
+    assert count_flops(lambda: _Dual(x, t) + c) == 1
+    assert count_flops(lambda: torch.sin(_Dual(x, t))) == 3
+    N, cost, sqp = 8, CostConfig(), SQPConfig(max_iters=2)
+    flops, nbytes = k1_work(1, N, cost, sqp)
+    assert k1_work(3, N, cost, SQPConfig(max_iters=4))[0] == 6 * flops
+    assert k1_work(1, N, cost, sqp, use_wrench=False)[0] < flops
+    assert nbytes == 4 * (12 + 3 * N + 2 * (12 * N + 6 * (N - 1)) + 2 + 2 * 2 + 6)
+    gen = torch.Generator().manual_seed(0)
+    r = lambda *s: 0.1 * torch.randn(s, generator=gen)
+    sm = LR.static_model(indy7(torch.float32))
+    plain = count_flops(solve_lane_major, sm, cost, sqp, 0.01, r(12, 1), r(N, 3, 1),
+                        r(N, 12, 1), r(N - 1, 6, 1), wrench=r(6, 1))
+    assert 0.5 * plain < flops < plain

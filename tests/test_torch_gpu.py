@@ -27,7 +27,7 @@ from indy7_mpc_tpu_torch.mpc import (
 )
 from indy7_mpc_tpu_torch.mpc.fused_tick import consensus_args
 from indy7_mpc_tpu_torch.ops import lane_rbd as LR
-from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import MAX_N, sqp_solve
 from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import (
     tick_epilogue, tick_epilogue_plain,
 )
@@ -89,6 +89,101 @@ def test_sqp_kernel_matches_plain(cuda, case):
         # Per lane, scaled by max(1, max |value|) as the TPU kernel's check does.
         scale = b.abs().amax(dim=(0, 1)).clamp(min=1.0)
         np.testing.assert_allclose((a / scale).cpu().numpy(), (b / scale).cpu().numpy(), atol=6e-3)
+
+
+def _k1_inputs(cuda, B, N, seed=11, wrench=True):
+    """Random lane-major K1 inputs like tests/test_pallas_kernel.py's."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(6, B)) * 8
+    w[3:] = 0.0
+    args = [_f32(rng.normal(size=shape) * scale, cuda) for shape, scale in (
+        ((12, B), 0.05), ((N, 3, B), 0.3), ((N, 12, B), 0.05), ((N - 1, 6, B), 0.5))]
+    return args, dict(wrench=_f32(w, cuda) if wrench else None)
+
+
+def _k1_against_plain(sm, sqp, args, kw):
+    """One K1 launch against the plain version at test_sqp_kernel_matches_plain's
+    tolerances: alphas equal, rho to 1e-6, X and U to 6e-3 scaled per lane."""
+    before = sqp_solve.launches
+    k = sqp_solve(sm, COST, sqp, DT, *args, **kw)
+    assert sqp_solve.launches == before + 1
+    p = solve_lane_major(sm, COST, sqp, DT, *args, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(k[3].cpu().numpy(), p[3].cpu().numpy())
+    np.testing.assert_allclose(k[2].cpu().numpy(), p[2].cpu().numpy(), rtol=1e-6)
+    for a, b in ((k[0], p[0]), (k[1], p[1])):
+        assert torch.isfinite(a).all()
+        scale = b.abs().amax(dim=(0, 1)).clamp(min=1.0)
+        np.testing.assert_allclose((a / scale).cpu().numpy(), (b / scale).cpu().numpy(), atol=6e-3)
+
+
+@pytest.mark.parametrize("variant", [{"threads": 32}, {"threads": 128}])
+def test_sqp_kernel_same_bits_at_any_block_size(cuda, variant):
+    """Every cooperative loop of K1 strides by the block size between
+    barriers and every sum is taken by one thread in a fixed order, so X,
+    U, rho, alphas and steps are the same bits at the default block size,
+    on a second launch of the same inputs, and at ``variant`` (32 or 128
+    threads): a race check that needs no sanitizer."""
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    args, kw = _k1_inputs(cuda, 16, 24)
+    first = sqp_solve(sm, COST, SQP, DT, *args, **kw)
+    again = sqp_solve(sm, COST, SQP, DT, *args, **kw)
+    other = sqp_solve(sm, COST, SQP, DT, *args, **kw, **variant)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, other):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("lanes,horizon", [(1, 2), (1, 8), (3, 2), (3, 8), (65, 2), (65, 8)])
+def test_sqp_kernel_edge_shapes_match_plain(cuda, lanes, horizon):
+    """K1 against the plain version at one lane, an odd lane count and one
+    over 64, with one running knot (N=2) and with N=8.  At N=2 the first
+    iteration solves the one-knot problem, and the second one's merit
+    differences (about 1e-11 relative, in float64) lie below float32
+    rounding, so its alpha is noise in both versions: N=2 runs one
+    iteration."""
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    sqp = SQPConfig(max_iters=1 if horizon == 2 else 2)
+    _k1_against_plain(sm, sqp, *_k1_inputs(cuda, lanes, horizon))
+
+
+def test_sqp_kernel_full_width_matches_plain(cuda):
+    """K1 at the main path's width, B=64 and N=64 with a wrench, 2 SQP
+    iterations (the smallest line-search margin there is 7.7e-4 relative
+    in float64)."""
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    _k1_against_plain(sm, SQP, *_k1_inputs(cuda, 64, 64))
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3])
+def test_sqp_kernel_stage_cut(cuda, stages):
+    """The profiling cut runs stages 1..``stages`` only: the trajectory is
+    returned as it came in (with X[0] = xs), alphas and steps are 0, rho
+    is unchanged."""
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    args, kw = _k1_inputs(cuda, 5, 8)
+    X, U, rho, alphas, steps = sqp_solve(sm, COST, SQP, DT, *args, **kw, stages=stages)
+    want = args[2].clone()
+    want[0] = args[0]
+    assert torch.equal(X, want) and torch.equal(U, args[3])
+    assert (alphas == 0).all() and (steps == 0).all()
+    assert torch.equal(rho, torch.full_like(rho, SQP.rho))
+
+
+def test_sqp_kernel_horizon_limit(cuda):
+    """The largest horizon that fits a block's shared memory runs; one
+    more raises before any launch."""
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    args, kw = _k1_inputs(cuda, 1, MAX_N + 1)
+    before = sqp_solve.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        sqp_solve(sm, COST, SQP, DT, *args, **kw)
+    assert sqp_solve.launches == before
+    args, kw = _k1_inputs(cuda, 1, MAX_N)
+    out = sqp_solve(sm, COST, SQP, DT, *args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in out)
 
 
 TICK_CASES = {

@@ -61,7 +61,7 @@ def _controller(ref, **sample):
     return SampledController(
         indy7(torch.float32), cfg.CostConfig(), cfg.SQPConfig(**SQP),
         cfg.MPCConfig(**MPC), cfg.SampleConfig(**{**SAMPLE, **sample}), ref,
-        f_ext_actual=F_EXT,
+        f_ext_actual=F_EXT, device="cpu",
     )
 
 
@@ -142,7 +142,8 @@ def test_controller_follows_jax_controller(jax_controller_run):
     ckpt, ref, (ju, jbest, jterr) = jax_controller_run
     ctl = _controller(ref, f_ext_resample_std=0.0)
     ctl.load_state(controller_state_from_npz(ckpt))
-    pu, pbest, pterr = _drive(ctl, InProcessPlant(indy7(torch.float32), np.zeros(12), DT), 6)
+    pu, pbest, pterr = _drive(ctl, InProcessPlant(indy7(torch.float32), np.zeros(12), DT,
+                                                 device="cpu"), 6)
     np.testing.assert_array_equal(pbest, jbest)
     np.testing.assert_allclose(pu, ju, rtol=0, atol=1e-4)
     np.testing.assert_allclose(pterr, jterr, atol=1e-5)
@@ -171,7 +172,7 @@ def test_in_process_plant_matches_jax():
     us = 20.0 * np.random.default_rng(10).normal(size=(5, 6))
     plants = (
         InProcessPlant(indy7(torch.float32), x0, DT, plant_cfg=dataclasses.replace(
-            cfg.PERTURBED_PLANT, torque_noise_std=0.0)),
+            cfg.PERTURBED_PLANT, torque_noise_std=0.0), device="cpu"),
         jrt.InProcessPlant(jax_indy7(dtype=jnp.float32), x0, DT, plant_cfg=dataclasses.replace(
             jcfg.PERTURBED_PLANT, torque_noise_std=0.0)),
     )
@@ -199,8 +200,8 @@ def test_checkpoint_resume_bit_identical(tmp_path):
             out.append(u.copy())
 
     ua, ub = [], []
-    ticks(_controller(ref), InProcessPlant(model, x0, DT), 8, ua)
-    plant_b, ctl_b = InProcessPlant(model, x0, DT), _controller(ref)
+    ticks(_controller(ref), InProcessPlant(model, x0, DT, device="cpu"), 8, ua)
+    plant_b, ctl_b = InProcessPlant(model, x0, DT, device="cpu"), _controller(ref)
     ticks(ctl_b, plant_b, 4, ub)
     ckpt = ctl_b.save_checkpoint(str(tmp_path / "ctl.npz"))
     ctl_c = _controller(ref)

@@ -12,9 +12,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      must be equal on every lane and X, U within 6e-3 after scaling each
      lane by max(1, max |value|); then K1 timed whole and at its
      profiling cut (stages 1, 1-2, 1-3);
-  4. tick-epilogue kernel (K2) against its plain version: B=64 on the
-     perturbed plant (winner equal, err rtol 1e-3 / atol 1e-5, x_next atol
-     2e-3, u and f_est equal to rtol 1e-7, eep atol 1e-5);
+  4. tick-epilogue kernel (K2, one block of 512 threads in teams of 8,
+     a team per forward-dynamics chain) against its plain version: B=64
+     on the perturbed plant (winner equal, err rtol 1e-3 / atol 1e-5,
+     x_next atol 2e-3, u and f_est equal to rtol 1e-7, eep atol 1e-5);
+     its threads and ptxas line printed;
   5. the main path: run_sampled_mpc on the card at the fig-8 configuration
      (B=64, N=64, 2 SQP iterations, perturbed plant) for 500 ticks; the
      trace must be finite, the mean tracking error of the last 100 ticks
@@ -26,8 +28,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      [-60, 20, -40] N) for 500 ticks: K1 once per tick plus the warm-up, K2
      twice per tick (consensus, plant step) plus the warm-up, everything
      recorded finite, last-100 tracking under 0.2 m, wrench-estimate error
-     p50 under 50 N; then K2 as the consensus (B=64) and as the plant step
-     (B=1) against its plain version at phase 4's tolerances;
+     p50 under 50 N; then K2 as the consensus (B=64, the plant step
+     skipped: x_next None on both sides) and as the plant step (B=1)
+     against its plain version at phase 4's tolerances;
   7. the runtime over UDP: the native plant built from native/plant by the
      port (sim/native.py), plant_node with the perturbed plant's flags in
      real time (--realtime-scale 1: the controller tick fits the 10 ms
@@ -45,8 +48,12 @@ Phases, each fatal on failure (exit code 1, no result line):
 Each kernel's bound is the larger of its floating-point operations on
 the phase's inputs over 67 TFLOP/s and the bytes of its inputs and
 outputs over 3.35 TB/s (H100 SXM, 700 W), from
-indy7_mpc_tpu_torch/roofline.py: K1's operations are the kernel's own
-arithmetic (k1_work), K2's those of its plain version.  No PyTorch call
+indy7_mpc_tpu_torch/roofline.py: K1's counts the kernel's own arithmetic
+(k1_work), K2's the work its function needs (k2_work: the mass matrix
+priced at the CRBA).  K2's latency floor, its chain of dependent
+forward-dynamics calls, is printed beside it.  Kernel times queue their
+launches behind a device sleep, so they time the kernel and not the
+host's launch path.  No PyTorch call
 computes either kernel's function, so library_ms is null.  There is no
 fallback: a kernel that does not build or launch, or a horizon that does
 not fit K1's shared memory, fails its phase.
@@ -78,12 +85,15 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, reps):
-    """Mean device milliseconds of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Mean device milliseconds of ``fn`` over ``reps`` calls (CUDA events).
+    The calls queue behind a device sleep of about 55 ms, so a launch whose
+    host side takes longer than its kernel is timed by the kernel."""
     import torch
 
     fn()  # warm up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -157,12 +167,15 @@ def phase_tick(dev):
     import torch
 
     from indy7_mpc_tpu_torch.config import PERTURBED_PLANT, SampleConfig
+    from indy7_mpc_tpu_torch.measure import ptxas_lines
     from indy7_mpc_tpu_torch.models import indy7
     from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels import _build
+    from indy7_mpc_tpu_torch.ops.kernels import tick_kernel as K2
     from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import (
         tick_epilogue, tick_epilogue_plain,
     )
-    from indy7_mpc_tpu_torch.roofline import FlopCounter, bound_ms, tensor_bytes
+    from indy7_mpc_tpu_torch.roofline import bound_ms, k2_work
     from indy7_mpc_tpu_torch.sim.plant import perturb_model
 
     cfg = PERTURBED_PLANT
@@ -184,24 +197,30 @@ def phase_tick(dev):
     best, err = check_k2_call("K2", smc, smp, cfg, args)
     ms = cuda_ms(lambda: tick_epilogue(smc, smp, cfg, DT, *args), 50)
     plain_ms = cuda_ms(lambda: tick_epilogue_plain(smc, smp, cfg, DT, *args), 3)
-    with FlopCounter() as flops:
-        out = tick_epilogue_plain(smc, smp, cfg, DT, *args)
-    bound, bound_by = bound_ms(flops.flops, tensor_bytes([*args, *out]))
+    flops, nbytes = k2_work(B, cfg.substeps, bool(cfg.viscous_friction or cfg.coulomb_friction),
+                            True, cfg.velocity_saturation)
+    bound, bound_by = bound_ms(flops, nbytes)
+    chain = 4 * (1 + cfg.substeps)
+    ptxas = ptxas_lines(_build.build_log(), "tick_kernel")
     print(f"K2 tick_epilogue B={B}: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
           f"max abs err {err:.3e}, winner {best}; bound {bound * 1e3:.3f} us "
-          f"({bound_by}, {flops.flops} flop)", flush=True)
+          f"({bound_by}, {flops} flop), latency floor a chain of {chain} forward-dynamics "
+          f"calls; {K2.THREADS} threads in teams of 8; ptxas: "
+          + " | ".join(ptxas), flush=True)
     return {"name": "tick_epilogue", "route": "cuda",
             "source": "indy7_mpc_tpu_torch/csrc/tick_kernel.cu",
             "replaces": "indy7_mpc_tpu/ops/pallas/tick_kernel.py:140",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "threads": K2.THREADS,
+            "fd_chain": chain, "ptxas": ptxas}
 
 
-def check_k2_call(label, smc, smp, cfg, args):
+def check_k2_call(label, smc, smp, cfg, args, plant=True):
     """K2 and its plain version on the same arguments (those after
     ``(smc, smp, cfg, dt)``) at phase 4's tolerances: winner equal, err
-    rtol 1e-3 / atol 1e-5, x_next atol 2e-3, u and f_est to rtol 1e-7, eep
-    atol 1e-5.  Returns (winner, max abs error)."""
+    rtol 1e-3 / atol 1e-5, x_next atol 2e-3 (None on both sides with
+    ``plant=False``), u and f_est to rtol 1e-7, eep atol 1e-5.  Returns
+    (winner, max abs error)."""
     import numpy as np
     import torch
 
@@ -210,11 +229,14 @@ def check_k2_call(label, smc, smp, cfg, args):
         tick_epilogue, tick_epilogue_plain,
     )
 
-    k = tick_epilogue(smc, smp, cfg, DT, *args)
-    p = tick_epilogue_plain(smc, smp, cfg or PlantConfig(), DT, *args)
+    k = tick_epilogue(smc, smp, cfg, DT, *args, plant=plant)
+    p = tick_epilogue_plain(smc, smp, cfg or PlantConfig(), DT, *args, plant=plant)
     torch.cuda.synchronize()
     np_ = lambda t: t.cpu().numpy()
     check(int(k.best) == int(p.best), f"{label}: winner {int(k.best)} != plain {int(p.best)}")
+    if not plant:
+        check(k.x_next is None and p.x_next is None, f"{label}: x_next without the plant")
+        k, p = k._replace(x_next=k.err), p._replace(x_next=p.err)
     try:
         np.testing.assert_allclose(np_(k.err), np_(p.err), rtol=1e-3, atol=1e-5)
         np.testing.assert_allclose(np_(k.x_next), np_(p.x_next), atol=2e-3)
@@ -354,14 +376,14 @@ def phase_runtime_inprocess(dev):
     check_recording(rec, "runtime in process", TICKS, 0.2)
 
     # K2's two calls of this phase against the plain version, on the run's
-    # last state: the controller's consensus (B=64, its own model as the
-    # plant, no plant config, zero true wrench) and the plant's step (B=1,
-    # the perturbed plant with its wrench and actuation noise).
+    # last state: the controller's consensus (B=64, its own model, no plant
+    # config, zero true wrench, the plant step skipped) and the plant's
+    # step (B=1, the perturbed plant with its wrench and actuation noise).
     (smc,) = ctl._tick.sampled.static_models(torch.float32)
     gen = torch.Generator(device=dev).manual_seed(3)
     U0_T = 3.0 * torch.randn((6, ctl.f_batch.shape[0]), generator=gen, device=dev)
     best, c_err = check_k2_call("K2 as the consensus", smc, smc, None, consensus_args(
-        plant.x, ctl.x_last, ctl.u_last, ctl.f_batch.T.contiguous(), U0_T))
+        plant.x, ctl.x_last, ctl.u_last, ctl.f_batch.T.contiguous(), U0_T), plant=False)
     noise = PERTURBED_PLANT.torque_noise_std * torch.randn(
         (PERTURBED_PLANT.substeps, 6), generator=gen, device=dev)
     _, p_err = check_k2_call("K2 as the plant step", plant._sm_nominal, plant._sm,

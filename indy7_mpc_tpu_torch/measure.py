@@ -1,7 +1,8 @@
 """Time the port's kernels and closed-loop tick on one CUDA card, or record
 a long host-dispatch run.
 
-Usage: python3 -m indy7_mpc_tpu_torch.measure [--out PATH] [--runtime [--stats-dir DIR] | --udp]
+Usage: python3 -m indy7_mpc_tpu_torch.measure [--out PATH]
+           [--runtime [--stats-dir DIR] | --udp | --k2 [--baseline DIR]]
 
 Without ``--runtime`` it prints, and writes as JSON to ``--out``:
   * the card's name and power limit (nvidia-smi);
@@ -22,7 +23,22 @@ Without ``--runtime`` it prints, and writes as JSON to ``--out``:
     device's busy share;
   * the runtime's controller tick (``SampledController.on_state`` at the
     same sizes, without a plant): its host-clock ``solve_time_us`` and a
-    profiler window.
+    profiler window;
+  * kernel K2 (``tick_epilogue``, see ``--k2``).
+
+With ``--k2`` it runs only K2's section: CUDA-event ms per launch over 50
+launches after a warm-up (``k2_times``), for each of K2's three calls (the
+device loop's at B=64 on the perturbed plant, the controller's consensus
+at B=64 with the plant skipped, the in-process plant's step at B=1 on the
+perturbed plant) and for the device loop's call at B = 64, 256, 1,024 and
+4,096, each beside its flops and bytes (``roofline.k2_work``), its bound
+and its chain of dependent forward-dynamics calls; at 512 and 256 threads,
+in turns; and ptxas's line for ``tick_kernel``.  ``--baseline DIR`` adds
+the K2 of the checkout in DIR, in turns with this one: the same
+``k2_times`` runs in a subprocess against DIR's package, which builds its
+kernels from its own sources and is called through its own wrapper (at
+its default launch; a wrapper without ``plant`` runs the consensus with
+its plant step).
 
 With ``--runtime`` it instead records the host-dispatch run of the TPU
 package's ``stats_tpu/perturbed_b64`` golden (examples/record_runs.py:
@@ -51,6 +67,7 @@ without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -67,7 +84,9 @@ from .mpc import init_loop_carry, make_fused_loop_tick, reference
 from .ops import lane_rbd as LR
 from .ops.kernels import sqp_kernel as K1
 from .ops.kernels.sqp_kernel import sqp_solve
-from .roofline import bound_ms, k1_work
+from .ops.kernels import _build
+from .ops.kernels import tick_kernel as K2
+from .roofline import bound_ms, k1_work, k2_work
 from .runtime import (
     InProcessPlant, RunRecorder, SampledController, UdpTransport, run_control_loop,
 )
@@ -83,10 +102,19 @@ K1_SWEEP = [(64, 64, 2), (64, 64, 1), (64, 32, 2), (256, 64, 2),
             (1024, 64, 2), (4096, 64, 2), (1, 32, 3), (64, 64, 2)]
 
 
+# A device sleep that the timed launches queue behind: about 55 ms at the
+# H100's clocks, longer than the host takes to enqueue them.
+SLEEP_CYCLES = 100_000_000
+
+
 def _events_ms(fn, reps):
+    """Mean device ms per call of ``fn`` over ``reps`` calls (CUDA events),
+    after a warm-up.  The calls queue behind a device sleep, so a launch
+    whose host side takes longer than its kernel is timed by the kernel."""
     fn()  # warm up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -291,6 +319,129 @@ def runtime_run(dev, out_dir, ticks=3500):
     return result
 
 
+def ptxas_lines(log, kernel):
+    """ptxas's lines (registers, stack frame and spills) for the kernel
+    entries whose mangled name contains ``kernel``."""
+    out, take = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            take = kernel in line
+        if take and any(k in line for k in ("registers", "spill", "stack frame", "Compiling")):
+            out.append(line.strip())
+    return out
+
+
+# K2's three calls: (lanes, plant step run).  The device loop's call runs
+# at each B of K2_SWEEP too.
+K2_CALLS = {"device_loop": (64, True), "consensus": (64, False), "plant_step": (1, True)}
+K2_SWEEP = (64, 256, 1024, 4096)
+
+
+def k2_times(reps, dt, init_q, f_true, sweep, **launch):
+    """ms per launch of K2 through the ``tick_epilogue`` wrapper of the
+    ``indy7_mpc_tpu_torch`` package on ``sys.path``, keyed as K2_CALLS
+    and ``device_loop_B<B>`` for B in ``sweep``; ``launch`` goes to each
+    call (``threads=``).  The inputs are chip_smoke.py phase 4's: the
+    device loop's call on the perturbed plant with its noise, the
+    controller's consensus (``consensus_args``, the plant skipped where
+    the wrapper takes ``plant``), the in-process plant's step at B=1
+    (``kernel_plant_args``).  It imports by absolute name and calls only
+    the wrappers' public API, so ``_k2_times_at`` runs its source against
+    another checkout's package."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch.config import PERTURBED_PLANT as cfg, SampleConfig
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.mpc.fused_tick import consensus_args
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import tick_epilogue
+    from indy7_mpc_tpu_torch.sim.kernel_plant import kernel_plant_args
+    from indy7_mpc_tpu_torch.sim.plant import perturb_model
+
+    dev = torch.device("cuda")
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    model = indy7(torch.float32, dev)
+    smc, smp = LR.static_model(model), LR.static_model(perturb_model(model, cfg))
+
+    def inputs(B):  # (x_cur, x_last, u_last, f_batch (6, B), U0 (6, B), f_true, noise)
+        rng = np.random.default_rng(2)
+        x_cur = np.r_[init_q, 0.1 * np.ones(6)]
+        f_batch = rng.normal(size=(6, B)) * SampleConfig().f_ext_std
+        f_batch[3:] = 0.0
+        f_batch[:, 0] = 0.0
+        return (f32(x_cur), f32(x_cur + 0.01 * rng.normal(size=12)),
+                f32(5.0 * rng.normal(size=6)), f32(f_batch), f32(3.0 * rng.normal(size=(6, B))),
+                f32(f_true), f32(cfg.torque_noise_std * rng.normal(size=(cfg.substeps, 6))))
+
+    skip = {"plant": False} if "plant" in inspect.signature(tick_epilogue).parameters else {}
+    a64, a1 = inputs(64), inputs(1)
+    calls = {"device_loop": ((smc, smp, cfg), a64, {}),
+             "consensus": ((smc, smc, None), consensus_args(*a64[:5]), skip),
+             "plant_step": ((smc, smp, cfg), kernel_plant_args(a1[0], a1[2], a1[5], a1[6]), {})}
+    calls.update({f"device_loop_B{B}": ((smc, smp, cfg), inputs(B), {}) for B in sweep})
+    return {name: _events_ms(lambda: tick_epilogue(*m, dt, *a, **kw, **launch), reps)
+            for name, (m, a, kw) in calls.items()}
+
+
+def _k2_times_at(root, reps):
+    """``k2_times`` run in a subprocess against the checkout at ``root``,
+    whose kernels it builds there from its own sources: (times, ptxas
+    lines of its ``tick_kernel``)."""
+    code = "\n".join([
+        "import json, torch", f"SLEEP_CYCLES = {SLEEP_CYCLES}",
+        inspect.getsource(_events_ms), inspect.getsource(ptxas_lines),
+        inspect.getsource(k2_times),
+        "from indy7_mpc_tpu_torch.ops.kernels import _build",
+        f"t = k2_times({reps}, {DT!r}, {INIT_Q!r}, {F_TRUE0!r}, {K2_SWEEP!r})",
+        "print(json.dumps([t, ptxas_lines(_build.build_log(), 'tick_kernel')]))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"K2 of {root} failed: {out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def k2_section(baseline=None, reps=50):
+    """K2's timings (see module doc); ``baseline`` a checkout directory."""
+    _build.load_library()
+    out = {"ptxas": ptxas_lines(_build.build_log(), "tick_kernel"), "threads": K2.THREADS}
+    for line in out["ptxas"]:
+        print(f"K2 ptxas: {line}", flush=True)
+    this = lambda threads: k2_times(reps, DT, INIT_Q, F_TRUE0, K2_SWEEP, threads=threads)
+    runs = {f"ms_{K2.THREADS}": [], "ms_256": [], "baseline_ms": []}
+    for key in ("baseline_ms", f"ms_{K2.THREADS}", "ms_256", "ms_256", f"ms_{K2.THREADS}",
+                "baseline_ms"):
+        if key == "baseline_ms":
+            if baseline:
+                times, out["baseline_ptxas"] = _k2_times_at(baseline, reps)
+                runs[key].append(times)
+        else:
+            runs[key].append(this(int(key[3:])))
+    for line in out.get("baseline_ptxas", []):
+        print(f"K2 baseline ptxas: {line}", flush=True)
+    cfg = PERTURBED_PLANT
+    friction = bool(cfg.viscous_friction or cfg.coulomb_friction)
+    out["calls"] = []
+    for name, (B, plant) in [*K2_CALLS.items(),
+                             *((f"device_loop_B{B}", (B, True)) for B in K2_SWEEP)]:
+        substeps = cfg.substeps if plant else 0
+        flops, nbytes = k2_work(B, substeps, friction, plant, cfg.velocity_saturation)
+        bound, by = bound_ms(flops, nbytes)
+        row = {"call": name, "B": B, "plant": plant, "flops": flops, "bytes": nbytes,
+               "bound_us": bound * 1e3, "bound_by": by, "fd_chain": 4 * (1 + substeps),
+               **{key: [t[name] for t in ts] for key, ts in runs.items() if ts}}
+        out["calls"].append(row)
+        print(f"K2 {name} B={B}: " + "; ".join(
+            f"{key} {', '.join(f'{v:.4f}' for v in row[key])}" for key in runs if key in row)
+            + f"; {flops} flop, bound {bound * 1e3:.4f} us ({by}); chain of "
+            f"{row['fd_chain']} forward-dynamics calls", flush=True)
+    return out
+
+
 UDP_PORTS = (7621, 7620)  # plant, controller
 UDP_RUNS = [(4, 0.0), (4, 0.023), (1, 0.0)]  # (--realtime-scale, command hold s)
 PHYS_DT, SUBSTEPS = DT / 5, 5  # plant_node's physics step and steps a period
@@ -386,6 +537,8 @@ def main(argv=None):
                     help="where --runtime writes its .npy recording")
     ap.add_argument("--udp", action="store_true",
                     help="run the controller over UDP at each of UDP_RUNS instead")
+    ap.add_argument("--k2", action="store_true", help="run only K2's section")
+    ap.add_argument("--baseline", help="a checkout whose K2 K2's section times too, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -402,12 +555,14 @@ def main(argv=None):
         result["runtime"] = runtime_run(dev, args.stats_dir)
     elif args.udp:
         result["udp"] = [udp_run(dev, scale, hold) for scale, hold in UDP_RUNS for _ in range(2)]
+    elif args.k2:
+        result["k2"] = k2_section(args.baseline)
     else:
         print(f"K1: {K1.THREADS} threads a block by default, "
               f"{K1.shared_bytes(64)} bytes of shared memory at N=64 (N <= {K1.MAX_N})",
               flush=True)
         result.update(k1=k1_sweep(dev, card), k1_variants=k1_variants(dev), tick=tick_timing(dev),
-                      controller=controller_timing(dev))
+                      controller=controller_timing(dev), k2=k2_section(args.baseline))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -8,8 +8,8 @@ wrench hypotheses and random-walk the true wrench.
 
 :class:`SampledTick`, the host-driven controller tick behind
 ``mpc.sampled.sampled_tick`` and ``runtime.SampledController``: the same
-solve, then consensus on an observed state (K2 with the plant outputs
-ignored), winner gather and resampling; no plant.
+solve, then consensus on an observed state (K2 with its plant step
+skipped), winner gather and resampling; no plant.
 
 On CUDA both kernels run in float32; on the CPU their plain versions run
 in the inputs' dtype.  Neither tick reads a device value on the host.
@@ -70,8 +70,8 @@ def broadcast_solve(smc, cost_cfg, sqp_cfg, dt, xk, goals, X_warm, U_warm, fb_T)
 def consensus_args(x_obs, x_last, u_last, f_batch_T, U0_T):
     """``tick_epilogue``'s arguments after ``(smc, smc, None, dt)`` for the
     host-driven tick's consensus: ``x_obs`` as K2's current state, a zero
-    true wrench, no actuation noise.  K2's plant step then runs the
-    controller model and is ignored."""
+    true wrench, no actuation noise.  The tick reads no plant state, so it
+    calls K2 with ``plant=False``, which skips the plant step."""
     return (x_obs, x_last.contiguous(), u_last.contiguous(), f_batch_T, U0_T,
             torch.zeros(6, dtype=x_obs.dtype, device=x_obs.device), None)
 
@@ -230,7 +230,7 @@ class SampledTick(_StaticModels):
     (:func:`consensus_args`; the TPU package does the same on its
     accelerator): it replays ``(x_last, u_last)`` under each hypothesis
     and keeps the lane whose prediction lands nearest ``x_obs``, the first
-    NaN first; its plant step is ignored.  ``ee_pos`` (3,) is the
+    NaN first; its plant step is skipped (``plant=False``).  ``ee_pos`` (3,) is the
     end-effector position of ``x_obs``, from K2's trace FK.  Without
     ``normals`` (B, 6) the resampling draws them from ``generator``.
     """
@@ -266,7 +266,7 @@ class SampledTick(_StaticModels):
             smc, self.cost_cfg, self.sqp_cfg, self.dt, xk, goals, X_warm, U_warm, fb_T
         )
         ep = tick_epilogue(smc, smc, None, self.dt, *consensus_args(
-            xk, x_last.to(kdt), u_last.to(kdt), fb_T, U[0]))
+            xk, x_last.to(kdt), u_last.to(kdt), fb_T, U[0]), plant=False)
         best, eep = ep.best, ep.eep.to(dtype)
         idx = best.reshape(1)
         X_best = X.index_select(2, idx)[:, :, 0].to(dtype)

@@ -67,10 +67,14 @@ def solve_params(
     )
 
 
-def plant_params(cfg: PlantConfig, dt: float, B: int, noise: bool) -> PlantParams:
+def plant_params(
+    cfg: PlantConfig, dt: float, B: int, noise: bool, plant: bool = True
+) -> PlantParams:
+    """K2's plant settings; ``plant=False`` sets 0 substeps, which skips
+    the plant step."""
     return PlantParams(
         dt=dt, viscous=cfg.viscous_friction, coulomb=cfg.coulomb_friction,
-        substeps=cfg.substeps, noise=int(noise),
+        substeps=cfg.substeps if plant else 0, noise=int(noise),
         friction=int(bool(cfg.viscous_friction or cfg.coulomb_friction)),
         velocity_saturation=int(cfg.velocity_saturation), B=B,
     )

@@ -3,8 +3,9 @@
 The sources in ``indy7_mpc_tpu_torch/csrc/`` (and nothing else) are
 compiled for ``sm_90a`` at first use into ``build/indy7_mpc_tpu_torch/``
 beside the package, under a file lock, cached by a hash of the sources and
-flags.  The library has a plain C interface: every pointer and the stream
-pass as ``c_void_p``; each entry returns ``cudaGetLastError()``.
+flags: one ``nvcc -c`` per source, all started together, then one link.
+The library has a plain C interface: every pointer and the stream pass as
+``c_void_p``; each entry returns ``cudaGetLastError()``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import List, Tuple
 
 from . import _abi
 
@@ -25,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "indy7_mpc_tpu_torch
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # looked for when nvcc is not on PATH
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -49,8 +50,13 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str, out: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def nvcc_commands(nvcc: str, out: Path) -> Tuple[List[List[str]], List[str]]:
+    """(one compile command per source, the link command) for ``out``;
+    source ``x.cu`` compiles to ``out``'s stem + ``.x.o``."""
+    objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+    return compiles, [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(out), *map(str, objs)]
 
 
 def _source_hash() -> str:
@@ -73,31 +79,44 @@ def build() -> Path:
         if out.exists():  # built by another process while we waited
             return out
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            nvcc_command(nvcc, tmp), capture_output=True, text=True
-        )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        compiles, link = nvcc_commands(nvcc, tmp)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        for p, text in zip(procs, logs):
+            if p.returncode != 0:
+                out.with_suffix(".log").write_text(log)
+                raise KernelBuildError(f"nvcc failed ({p.returncode}):\n{text[-6000:]}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        for cmd in compiles:  # the objects
+            Path(cmd[cmd.index("-o") + 1]).unlink(missing_ok=True)
+        out.with_suffix(".log").write_text(log + proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}"
-            )
+            raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
         os.replace(tmp, out)
     return out
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# The C entries' parameter types: pointers and the stream as c_void_p.
+ARGTYPES = {
+    # model, params, 11 pointers, threads, stream
+    "indy7_sqp_solve": [_abi.ModelConsts, _abi.SolveParams] + [_PTR] * 11 + [_INT, _PTR],
+    # controller and plant models, plant params, 13 pointers, threads, stream
+    "indy7_tick_epilogue": [_abi.ModelConsts, _abi.ModelConsts, _abi.PlantParams]
+    + [_PTR] * 13 + [_INT, _PTR],
+}
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its C signatures."""
     lib = ctypes.CDLL(str(build()))
-    ptr = ctypes.c_void_p
-    lib.indy7_sqp_solve.argtypes = [_abi.ModelConsts, _abi.SolveParams] + [ptr] * 11 + [
-        ctypes.c_int, ptr,
-    ]
-    lib.indy7_sqp_solve.restype = ctypes.c_int
-    lib.indy7_tick_epilogue.argtypes = [
-        _abi.ModelConsts, _abi.ModelConsts, _abi.PlantParams,
-    ] + [ptr] * 14
-    lib.indy7_tick_epilogue.restype = ctypes.c_int
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -5,9 +5,12 @@ under a ``TorchDispatchMode`` and counts the floating-point operations of
 every aten call: one per output element of an elementwise operation (two
 for ``addcmul``/``addcdiv``), one per input element of a reduction, 2mnk
 for a matrix product.  Copies, views, selections and comparisons count
-nothing.  K2's bound counts its plain version this way.
+nothing.
 
-K1's plain version does work the kernel does not (forward-mode AD with a
+Both kernels' bounds count the work the kernel's function needs, item by
+item, not what their plain versions' PyTorch calls do.
+
+**K1.**  Its plain version does work the kernel does not (forward-mode AD with a
 zero tangent on every model constant, the alpha = 0 line-search
 candidate, dense Riccati products), so :func:`k1_work` counts the kernel's
 own arithmetic instead: each item of ``csrc/sqp_kernel.cu`` that runs the
@@ -18,6 +21,19 @@ number, and counted; the Riccati sweep, rollout, sums and update are
 counted from the kernel's loops.  Work the kernel repeats across threads
 for parallelism (the 13 Quu factorizations of a knot, du in each rollout
 row, S's symmetrization at each read) counts once.
+
+**K2.**  :func:`k2_work` counts the work K2's function needs, item by
+item at one lane: per forward-dynamics call the six joint rotations, the
+bias RNEA, the mass matrix by the CRBA (the cheaper of the two ways to
+get it), the LDL^T and its solves, and the plant's friction; per RK4 step
+the wrench-map FK from those rotations and the RK4 combinations; per
+lane the joint stops (their clamps) and the squared error; then the
+plant's noise and the trace FK.  Each item is replayed through
+``ops/lane_rbd.py`` or the kernel's expressions on tensors and counted;
+the argmin is comparisons only.  The kernel itself builds M from six
+unit-acceleration RNEA passes run beside the bias pass
+(``csrc/rbd_team.cuh``), 6 * ``unit_rnea`` flops where the CRBA needs
+``crba``: that redundancy buys lockstep, and is not counted as work.
 
 ``bound_ms`` is the larger of that work over the card's float32 rate and
 the bytes the function must move (each input read once, each output
@@ -297,3 +313,75 @@ def k1_work(B: int, N: int, cost_cfg: CostConfig = CostConfig(),
     floats = (12 + 3 * N + 2 * (12 * N + 6 * Nm1) + 2 + 2 * sqp_cfg.max_iters
               + (6 if use_wrench else 0))
     return flops, 4 * B * floats
+
+
+# ---------------------------------------------------------------------------
+# K2's work, item by item.
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _k2_item_flops():
+    """Flops of K2's items at one lane (see module doc), by name."""
+    sm = LR.static_model(indy7(torch.float32))
+    gen = torch.Generator().manual_seed(0)
+    r = lambda s=0.1: [s * torch.randn(1, generator=gen) for _ in range(6)]
+    q, v, u, w = r(), r(), r(5.0), r(8.0)
+    zero = [torch.zeros(1) for _ in range(6)]
+    rot = count_flops(LR._local_placements, sm, q)
+    fac = LR.chol6(LR.crba(sm, q))  # a factor to count the solves on
+    items = {
+        "rotations": rot,
+        "bias_rnea": count_flops(LR.rnea, sm, q, v, zero,
+                                 f_ext_ee=(w[:3], w[3:])) - rot,
+        "crba": count_flops(LR.crba, sm, q) - rot,
+        "unit_rnea": count_flops(LR.rnea, sm, q, zero, [torch.ones(1)] + zero[1:],
+                                 f_ext_ee=(zero[:3], zero[3:])) - rot,
+        "ldl_solve": count_flops(LR.chol6, [[v[i] * v[j] for j in range(6)] for i in range(6)])
+        + count_flops(lambda: LR.chol6_solve(fac, [u[i] - v[i] for i in range(6)])),
+        "friction": count_flops(lambda: [u[i] - 0.05 * v[i] - 0.1 * torch.tanh(v[i] / 0.01)
+                                         for i in range(6)]),
+        "wrench_map": count_flops(LR.world_wrench_to_ee, sm, q, w) - rot,
+        "trace_fk": count_flops(LR.ee_pos, sm, q),
+    }
+
+    def rk4_combinations(h=0.002):
+        half = h / 2.0
+        for i in range(6):  # the stage inputs of stages 2-4, then the update
+            q[i] + half * v[i], v[i] + half * u[i]
+            q[i] + half * v[i], v[i] + half * u[i]
+            q[i] + h * v[i], v[i] + h * u[i]
+            q[i] + h / 6.0 * (v[i] + 2.0 * u[i] + 2.0 * w[i] + v[i])
+            v[i] + h / 6.0 * (u[i] + 2.0 * w[i] + 2.0 * v[i] + u[i])
+
+    items["rk4_combinations"] = count_flops(rk4_combinations)
+    lo, hi = torch.full((1,), -1.0), torch.full((1,), 1.0)
+    items["clamp"] = count_flops(  # fminf(fmaxf(x, lo), hi) per joint
+        lambda: [torch.minimum(torch.maximum(q[i], lo), hi) for i in range(6)])
+    x, y = q + v, u + w
+    items["squared_error"] = count_flops(
+        lambda: sum(d * d for d in (x[i] - y[i] for i in range(12))))
+    return items
+
+
+def k2_work(B: int, substeps: int, friction: bool, use_noise: bool,
+            saturate: bool = False):
+    """(flops, bytes) of one K2 launch: B lanes, ``substeps`` plant RK4
+    steps (0: the plant skipped), from the work its function needs (see
+    module doc).  The bytes read each input once (the two models'
+    constants, the states, controls and hypotheses; the true wrench and
+    noise with the plant) and write each output once.  K2's latency floor is its chain of
+    dependent forward-dynamics calls, 4 * (1 + substeps)."""
+    it = _k2_item_flops()
+    fd = it["rotations"] + it["bias_rnea"] + it["crba"] + it["ldl_solve"]
+    rk4 = 4 * fd + it["wrench_map"] + it["rk4_combinations"]
+    lane = rk4 + it["clamp"] + it["squared_error"]   # + q clamped to its range
+    flops = B * lane + it["clamp"] + it["trace_fk"]  # + u_last clamped
+    if substeps:
+        step = rk4 + it["clamp"] * (2 if saturate else 1)
+        step += 4 * it["friction"] if friction else 0
+        step += 6 if use_noise else 0
+        flops += substeps * step + it["clamp"]       # + the winner's u clamped
+    floats = (2 * 195 + 12 + 6 + 12 + 12 * B                    # models, x_last, u_last, x_cur
+              + ((6 + (6 * substeps if use_noise else 0) + 12) if substeps else 0)  # f_true, noise, x_next
+              + B + 2 + 6 + 3 + 6)                              # err, best, u, eep, f_est
+    return flops, 4 * floats

@@ -20,7 +20,9 @@ from indy7_mpc_tpu_torch.ops import lane_rbd as LR
 from indy7_mpc_tpu_torch.ops.kernels import _abi, _build
 from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
 from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
-from indy7_mpc_tpu_torch.roofline import _Dual, bound_ms, count_flops, k1_work, tensor_bytes
+from indy7_mpc_tpu_torch.roofline import (
+    _Dual, _k2_item_flops, bound_ms, count_flops, k1_work, k2_work, tensor_bytes,
+)
 from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import tick_epilogue
 from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
 
@@ -37,15 +39,22 @@ def test_no_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
 
 
 def test_nvcc_command_targets_sm90a_and_csrc_only():
-    cmd = _build.nvcc_command("nvcc", Path("/tmp/out.so"))
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
-    srcs = [Path(c) for c in cmd[1:] if c.endswith((".cu", ".cuh", ".cpp", ".cc", ".c"))]
+    """One compile per source (started together), then one link, all for
+    sm_90a and without fast math."""
+    compiles, link = _build.nvcc_commands("nvcc", Path("/tmp/out.so"))
+    srcs = []
+    for cmd in compiles:
+        assert cmd[0] == "nvcc" and "-c" in cmd
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
+        assert {"-O3", "-std=c++17", "-Xptxas=-v"} <= set(cmd)
+        srcs += [Path(c) for c in cmd[1:] if c.endswith((".cu", ".cuh", ".cpp", ".cc", ".c"))]
     assert {p.name for p in srcs} == {"sqp_kernel.cu", "tick_kernel.cu"}
     assert all(p.parent == _build.CSRC_DIR for p in srcs)
-    assert (_build.CSRC_DIR / "rbd.cuh").exists()
+    assert (_build.CSRC_DIR / "rbd.cuh").exists() and (_build.CSRC_DIR / "rbd_team.cuh").exists()
+    objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert link[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+    assert "-shared" in link and link[-len(objs):] == objs
 
 
 @pytest.mark.parametrize(
@@ -81,6 +90,33 @@ def test_ctypes_structs_mirror_the_c_structs(struct, source, fields):
         py_fields.append((name, kind, ctype._length_ if is_array else 1))
     assert py_fields == c_fields
     assert ctypes.sizeof(struct) == 4 * sum(f[2] for f in c_fields)
+
+
+def test_c_entries_match_their_argtypes():
+    """Each ``extern "C"`` entry's parameters, read from its source, are
+    the ctypes argtypes the loader sets: the structs by value, every
+    pointer and the stream as c_void_p, the launch options as c_int
+    (K1's threads, K2's threads)."""
+    by_type = {"indy7::ModelConsts": _abi.ModelConsts, "indy7::SolveParams": _abi.SolveParams,
+               "indy7::PlantParams": _abi.PlantParams, "int": ctypes.c_int}
+    found = {}
+    for src in _build.sources():
+        text = src.read_text()
+        for name, params in re.findall(r'extern "C" int (\w+)\((.*?)\)\s*\{', text, re.S):
+            decls = [" ".join(d.split()) for d in params.split(",")]
+            found[name] = [ctypes.c_void_p if "*" in d else by_type[d.rsplit(" ", 1)[0]]
+                           for d in decls]
+    assert found == _build.ARGTYPES
+    assert found["indy7_tick_epilogue"][-2:] == [ctypes.c_int, ctypes.c_void_p]
+
+
+def test_plant_params_skip_the_plant():
+    """``plant=False`` passes 0 substeps, which makes K2 skip its plant
+    step; otherwise the config's substeps."""
+    cfg = PlantConfig(substeps=5, torque_noise_std=0.1)
+    assert _abi.plant_params(cfg, 0.01, 64, True).substeps == 5
+    skipped = _abi.plant_params(cfg, 0.01, 64, False, plant=False)
+    assert skipped.substeps == 0 and skipped.B == 64 and skipped.noise == 0
 
 
 def test_wrappers_refuse_other_devices():
@@ -168,3 +204,28 @@ def test_k1_work_counts_the_kernels_arithmetic():
     plain = count_flops(solve_lane_major, sm, cost, sqp, 0.01, r(12, 1), r(N, 3, 1),
                         r(N, 12, 1), r(N - 1, 6, 1), wrench=r(6, 1))
     assert 0.5 * plain < flops < plain
+
+
+def test_k2_work_counts_the_functions_work():
+    """K2's work is the items its function needs at one lane, pinned: per
+    forward dynamics the rotations, the bias RNEA, the mass matrix by the
+    CRBA (not the kernel's six unit-acceleration RNEA passes, 6 x 1719
+    flops where the CRBA needs 2042) and the LDL^T solve; per RK4 step the
+    wrench map and the combinations; per lane the joint clamps and the
+    squared error; the plant's friction (four stages a substep), noise
+    and clamps; the trace FK.  The consensus is linear in the lanes, the
+    plant in its substeps, and the bytes read each input and write each
+    output once."""
+    it = _k2_item_flops()
+    assert it == {"rotations": 486, "bias_rnea": 1719, "crba": 2042, "unit_rnea": 1719,
+                  "ldl_solve": 204, "friction": 36, "wrench_map": 357, "trace_fk": 801,
+                  "rk4_combinations": 156, "clamp": 12, "squared_error": 36}
+    fd = 486 + 1719 + 2042 + 204
+    lane = 4 * fd + 357 + 156 + 12 + 36
+    assert k2_work(1, 0, False, False)[0] == lane + 12 + 801
+    assert k2_work(64, 0, False, False) == (64 * lane + 12 + 801,
+                                            4 * (2 * 195 + 30 + 13 * 64 + 17))
+    step = 4 * fd + 357 + 156 + 12 + 4 * 36 + 6
+    assert k2_work(64, 5, True, True)[0] == 64 * lane + 12 + 801 + 5 * step + 12
+    assert k2_work(64, 5, True, True)[1] == 4 * (2 * 195 + 30 + 13 * 64 + 17 + 6 + 30 + 12)
+    assert k2_work(64, 5, True, True, saturate=True)[0] == k2_work(64, 5, True, True)[0] + 5 * 12

@@ -218,17 +218,20 @@ def test_tick_kernel_matches_plain(cuda, case):
         assert best == nan_lanes[0]
 
 
-def _k2_against_plain(smc, smp, cfg, args):
+def _k2_against_plain(smc, smp, cfg, args, plant=True):
     """One K2 launch against the plain version on ``args``; returns the
     winner."""
     before = tick_epilogue.launches
-    k = tick_epilogue(smc, smp, cfg, DT, *args)
+    k = tick_epilogue(smc, smp, cfg, DT, *args, plant=plant)
     assert tick_epilogue.launches == before + 1
-    p = tick_epilogue_plain(smc, smp, cfg or PlantConfig(), DT, *args)
+    p = tick_epilogue_plain(smc, smp, cfg or PlantConfig(), DT, *args, plant=plant)
     torch.cuda.synchronize()
     assert int(k.best) == int(p.best)
     np.testing.assert_allclose(k.err.cpu().numpy(), p.err.cpu().numpy(), rtol=1e-3, atol=1e-5)
-    np.testing.assert_allclose(k.x_next.cpu().numpy(), p.x_next.cpu().numpy(), atol=2e-3)
+    if plant:
+        np.testing.assert_allclose(k.x_next.cpu().numpy(), p.x_next.cpu().numpy(), atol=2e-3)
+    else:
+        assert k.x_next is None and p.x_next is None
     np.testing.assert_array_equal(k.u.cpu().numpy(), p.u.cpu().numpy())
     np.testing.assert_array_equal(k.f_est.cpu().numpy(), p.f_est.cpu().numpy())
     np.testing.assert_allclose(k.eep.cpu().numpy(), p.eep.cpu().numpy(), atol=1e-5)
@@ -264,6 +267,86 @@ def test_tick_kernel_runtime_calls_match_plain(cuda, call):
         noise = t(cfg.torque_noise_std * rng.normal(size=(cfg.substeps, 6)))
         smp = LR.static_model(perturb_model(model, cfg))
         _k2_against_plain(smc, smp, cfg, kernel_plant_args(x, u, t(F_TRUE0), noise))
+
+
+def _k2_args(cuda, lanes, seed=5, cfg=PERTURBED_PLANT):
+    """Phase 4's K2 inputs at ``lanes`` hypotheses (the perturbed plant)."""
+    rng = np.random.default_rng(seed)
+    x_cur = np.r_[INIT_Q, 0.1 * np.ones(6)]
+    f_batch = rng.normal(size=(6, lanes)) * 20.0
+    f_batch[3:] = 0.0
+    f_batch[:, 0] = 0.0
+    return [_f32(a, cuda) for a in (
+        x_cur, x_cur + 0.01 * rng.normal(size=12), 5.0 * rng.normal(size=6), f_batch,
+        3.0 * rng.normal(size=(6, lanes)), F_TRUE0,
+        cfg.torque_noise_std * rng.normal(size=(cfg.substeps, 6)))]
+
+
+def _k2_models(cuda, cfg=PERTURBED_PLANT):
+    model = indy7(torch.float32, cuda)
+    return LR.static_model(model), LR.static_model(perturb_model(model, cfg)), cfg
+
+
+@pytest.mark.parametrize("lanes", [100, 300])
+@pytest.mark.parametrize("threads", [256, 32])
+def test_tick_kernel_same_bits_at_any_block_size(cuda, threads, lanes):
+    """Each lane's error comes from one team (B <= 256) or one thread
+    (B > 256), chosen by B alone, and the argmin is order-free under the
+    (err, lane) rule, so K2 gives the same bits at 512 threads, on a
+    second launch, and at 256 or 32 threads (a race check that needs no
+    sanitizer); B=100 takes two rounds of teams at 512 threads and 25 at
+    32, B=300 ten rounds of threads at 32."""
+    smc, smp, cfg = _k2_models(cuda)
+    args = _k2_args(cuda, lanes)
+    first = tick_epilogue(smc, smp, cfg, DT, *args, threads=512)
+    again = tick_epilogue(smc, smp, cfg, DT, *args, threads=512)
+    other = tick_epilogue(smc, smp, cfg, DT, *args, threads=threads)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, other):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("lanes", [1, 7, 65, 257, 1024])
+def test_tick_kernel_edge_lane_counts_match_plain(cuda, lanes):
+    """One lane, an odd count and one past a round of 64 teams (a team per
+    lane), one past the teams' 256 lanes and 1,024 (a thread per lane),
+    against the plain version at phase 4's tolerances."""
+    smc, smp, cfg = _k2_models(cuda)
+    _k2_against_plain(smc, smp, cfg, _k2_args(cuda, lanes, seed=lanes))
+
+
+def test_tick_kernel_consensus_without_plant_matches_plain(cuda):
+    """The host tick's consensus with ``plant=False``: the kernel skips its
+    plant step; winner, err, u, f_est and eep match the plain version and
+    the full call, and ``x_next`` is None."""
+    model = indy7(torch.float32, cuda)
+    smc = LR.static_model(model)
+    rng = np.random.default_rng(8)
+    t = lambda a: _f32(a, cuda)
+    x, u = t(np.r_[INIT_Q, 0.3 * rng.normal(size=6)]), t(5.0 * rng.normal(size=6))
+    f_batch = 20.0 * rng.normal(size=(6, 64))
+    f_batch[3:] = 0.0
+    f_batch[:, 0] = 0.0
+    x_obs = predict_next_states(smc, x, u, DT, t(f_batch))[:, 9] + t(1e-4 * rng.normal(size=12))
+    args = consensus_args(x_obs, x, u, t(f_batch), t(3.0 * rng.normal(size=(6, 64))))
+    assert _k2_against_plain(smc, smc, None, args, plant=False) == 9
+    k = tick_epilogue(smc, smc, None, DT, *args, plant=False)
+    full = tick_epilogue(smc, smc, None, DT, *args)
+    torch.cuda.synchronize()
+    assert k.x_next is None and full.x_next is not None
+    for name in ("err", "best", "u", "eep", "f_est"):
+        assert torch.equal(getattr(k, name), getattr(full, name))
+
+
+def test_tick_kernel_refuses_bad_launches(cuda):
+    """Block sizes the kernel does not take raise before any launch."""
+    smc, smp, cfg = _k2_models(cuda)
+    args = _k2_args(cuda, 8)
+    before = tick_epilogue.launches
+    for threads in (16, 96, 1024):
+        with pytest.raises(ValueError, match="threads"):
+            tick_epilogue(smc, smp, cfg, DT, *args, threads=threads)
+    assert tick_epilogue.launches == before
 
 
 def test_in_process_plant_on_the_card(cuda):

@@ -75,7 +75,7 @@ def _noise(cfg, key):
     return torch.as_tensor(np.stack(draws))
 
 
-def _port(cfg, inp, noise):
+def _port(cfg, inp, noise, plant=True):
     model = indy7(torch.float64)
     smc = LR.static_model(model)
     smp = LR.static_model(perturb_model(model, cfg))
@@ -83,6 +83,7 @@ def _port(cfg, inp, noise):
     return tick_epilogue(
         smc, smp, cfg, DT, t(inp["x_cur"]), t(inp["x_last"]), t(inp["u_last"]),
         t(inp["f_batch"].T.copy()), t(inp["U0"].T.copy()), t(inp["f_true"]), noise,
+        plant=plant,
     )
 
 
@@ -101,6 +102,28 @@ def test_tick_epilogue_matches_jax(oracles, plant):
     assert int(ep.best) == int(best)
     np.testing.assert_allclose(ep.err.numpy(), np.asarray(err) ** 2, rtol=1e-10)
     np.testing.assert_allclose(ep.x_next.numpy(), np.asarray(x_next), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(ep.u.numpy(), inp["U0"][int(best)], rtol=0, atol=1e-10)
+    np.testing.assert_allclose(ep.f_est.numpy(), inp["f_batch"][int(best)], rtol=0, atol=1e-10)
+    np.testing.assert_allclose(ep.eep.numpy(), np.asarray(eep), rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_consensus_without_plant_matches_jax(oracles, seed):
+    """``plant=False``, the host tick's consensus: no plant step
+    (``x_next`` is None), and the winner and err of ``find_best_lane``, u,
+    f_est and ``ee_pos``'s eep as with the plant."""
+    cfg, _ = PLANTS["nominal"]
+    inp = _inputs(seed)
+    best, err, _, eep = oracles["nominal"](
+        *(jnp.asarray(inp[k]) for k in ("x_cur", "x_last", "u_last", "f_batch", "U0", "f_true")),
+        jax.random.PRNGKey(7),
+    )
+    before = tick_epilogue.launches
+    ep = _port(cfg, inp, None, plant=False)
+    assert tick_epilogue.launches == before
+    assert ep.x_next is None
+    assert int(ep.best) == int(best)
+    np.testing.assert_allclose(ep.err.numpy(), np.asarray(err) ** 2, rtol=1e-10)
     np.testing.assert_allclose(ep.u.numpy(), inp["U0"][int(best)], rtol=0, atol=1e-10)
     np.testing.assert_allclose(ep.f_est.numpy(), inp["f_batch"][int(best)], rtol=0, atol=1e-10)
     np.testing.assert_allclose(ep.eep.numpy(), np.asarray(eep), rtol=0, atol=1e-10)

@@ -43,7 +43,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      examples/point_to_goal.py: K1 once per step plus the warm-up solve,
      K2 (the plant step) once per step, at least one goal switch, alive at
      the end, states finite; then K2 as that plant step (B=1) against its
-     plain version at phase 4's tolerances.
+     plain version at phase 4's tolerances;
+  9. the readable layer (solvers/sqp.py, ops/kkt.py, ops/riccati.py,
+     mpc/readable_tick.py) on the card, at phase 3's B=64/N=64 inputs:
+     the readable batch_solve in f32 against K1 (alphas equal, X and U
+     within phase 3's scaled 6e-3 on every lane whose alphas agree; at
+     most 2 of 64 lanes may flip an alpha from f32 rounding, each
+     printed); the same solve in f64 on the card and on the CPU, within
+     1e-9 with equal alphas; then run_sampled_mpc(fused=False) for T
+     ticks (T from a two-tick timing, so the run takes about 40 s, at most
+     100 ticks) and fused="auto" (K1 + K2) from the same carry with the
+     same draws: the readable run launches neither kernel, the fused one
+     each once a tick; the first tick's winner equal and its u within the
+     scaled 6e-3; both finite; the readable run's mean tracking error
+     within 10% of the fused run's; ms per tick (host clock) and the
+     device kernels and copies of one tick (torch.profiler) printed for
+     both; last, three
+     sampled_tick calls with formulation="reference": the readable solver
+     (no K1 or K2 launch), the fallback warning logged, finite outputs;
+ 10. the URDF-controller / MJCF-plant loop: the controller on
+     indy7_from_urdf(), the plant on indy7_mjcf() (MJCF inertials, axes
+     and ranges, +inf velocity limits, which reach K2's constants
+     unchanged) perturbed by PERTURBED_PLANT, run_sampled_mpc at phase 5's
+     configuration for 500 ticks through K1 and K2 (each once a tick):
+     finite, last-100 tracking under 0.2 m; then K2 with the MJCF plant's
+     constants against its plain version on the run's last state.
 
 Each kernel's bound is the larger of its floating-point operations on
 the phase's inputs over 67 TFLOP/s and the bytes of its inputs and
@@ -73,6 +97,7 @@ INIT_Q = [1.5799, 0.0631, -1.1807, 1.0927, -0.6255, -0.0190]
 F_TRUE0 = [-60.0, 20.0, -40.0, 0.0, 0.0, 0.0]
 UDP_TICKS, REALTIME_SCALE, UDP_PORTS = 300, 1, (7611, 7610)  # plant, controller
 P2G_N, P2G_ITERS, P2G_STEPS = 32, 3, 300
+READABLE_BUDGET_S, READABLE_MAX_TICKS, MAX_FLIPS = 40.0, 100, 2
 
 
 class SmokeFailure(Exception):
@@ -260,14 +285,9 @@ def phase_main_path(dev):
         PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig,
     )
     from indy7_mpc_tpu_torch.models import indy7
-    from indy7_mpc_tpu_torch.mpc import reference, run_sampled_mpc
+    from indy7_mpc_tpu_torch.mpc import run_sampled_mpc
 
-    ref = reference.with_padding(
-        reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45],
-                          period=10, dt=DT, cycles=1), 200)
-    check(ref.shape[0] >= TICKS + N, "reference too short")
-    x0 = torch.zeros(12, dtype=torch.float32, device=dev)
-    x0[:6] = torch.tensor(INIT_Q)
+    ref, x0 = fig8_reference(), initial_state(dev)
     gen = torch.Generator(device=dev).manual_seed(42)
     reset_counts()
     torch.cuda.synchronize()
@@ -356,8 +376,7 @@ def phase_runtime_inprocess(dev):
     t0 = time.perf_counter()
     ctl = measure.runtime_controller(dev)
     init_s = time.perf_counter() - t0
-    x0 = torch.zeros(12, dtype=torch.float32, device=dev)
-    x0[:6] = torch.tensor(INIT_Q)
+    x0 = initial_state(dev)
     # The plant lives on the card too: one K2 launch per command.
     plant = InProcessPlant(indy7(torch.float32), x0, DT, plant_cfg=PERTURBED_PLANT)
     rec = RunRecorder(save_interval=1e9)  # kept in memory, never saved
@@ -524,6 +543,240 @@ def phase_point_to_goal(dev):
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
+def fig8_reference():
+    from indy7_mpc_tpu_torch.mpc import reference
+
+    ref = reference.with_padding(
+        reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45],
+                          period=10, dt=DT, cycles=1), 200)
+    check(ref.shape[0] >= TICKS + N, "reference too short")
+    return ref
+
+
+def initial_state(dev):
+    import torch
+
+    x0 = torch.zeros(12, dtype=torch.float32, device=dev)
+    x0[:6] = torch.tensor(INIT_Q)
+    return x0
+
+
+def phase_readable(dev):
+    import logging
+
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.config import (
+        PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig,
+    )
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.mpc import draw_tick, init_loop_carry, run_sampled_mpc, sampled_tick
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
+    from indy7_mpc_tpu_torch.solvers import sqp as readable
+
+    cost, sqp = CostConfig(), SQPConfig(max_iters=SQP_ITERS)
+    model = indy7(torch.float32, dev)
+    sm = LR.static_model(model)
+    args, w = measure.k1_inputs(dev, B, N)
+    # Lane-major K1 inputs -> the readable solver's B-major ones.
+    bmajor = [args[0].T] + [a.permute(2, 0, 1) for a in args[1:]] + [w.T]
+
+    # 1. The readable solve in f32 against K1 on the same inputs.
+    k = K1.sqp_solve(sm, cost, sqp, DT, *args, wrench=w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = readable.batch_solve(model, cost, sqp, DT, *bmajor[:4], wrench_world_batch=bmajor[4])
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    k_alpha, r_alpha = k[3].T.cpu().numpy(), r.stats.alphas.cpu().numpy()
+    flips = np.nonzero((k_alpha != r_alpha).any(axis=1))[0]
+    for lane in flips:
+        print(f"readable vs K1: lane {lane} alphas flip (f32 rounding): readable "
+              f"{r_alpha[lane].tolist()}, K1 {k_alpha[lane].tolist()}", flush=True)
+    check(flips.size <= MAX_FLIPS, f"readable vs K1: {flips.size} of {B} lanes flip an alpha "
+          f"(at most {MAX_FLIPS})")
+    keep = torch.ones(B, dtype=torch.bool, device=dev)
+    keep[torch.as_tensor(flips, dtype=torch.long, device=dev)] = False
+    err = 0.0
+    for kt, rt in ((k[0].permute(2, 0, 1), r.X), (k[1].permute(2, 0, 1), r.U)):
+        check(bool(torch.isfinite(rt).all()), "readable f32 solve not finite")
+        scale = rt.abs().amax(dim=(1, 2)).clamp(min=1.0)
+        scaled = ((kt - rt).abs() / scale[:, None, None])[keep].max().item()
+        check(scaled <= 6e-3, f"readable vs K1: X/U scaled error {scaled:.3e} > 6e-3")
+        err = max(err, (kt - rt)[keep].abs().max().item())
+
+    # 2. The same solve in f64, on the card and on the CPU.
+    a64 = [a.double() for a in bmajor]
+    t0 = time.perf_counter()
+    g64 = readable.batch_solve(indy7(torch.float64, dev), cost, sqp, DT, *a64[:4],
+                               wrench_world_batch=a64[4])
+    torch.cuda.synchronize()
+    solve64_s = time.perf_counter() - t0
+    c64 = readable.batch_solve(indy7(torch.float64), cost, sqp, DT, *(a.cpu() for a in a64[:4]),
+                               wrench_world_batch=a64[4].cpu())
+    check(np.array_equal(g64.stats.alphas.cpu().numpy(), c64.stats.alphas.numpy()),
+          "readable f64: alphas differ between the card and the CPU")
+    d64 = max((g.cpu() - c).abs().max().item() for g, c in ((g64.X, c64.X), (g64.U, c64.U)))
+    check(d64 <= 1e-9, f"readable f64: card vs CPU differ by {d64:.3e} > 1e-9")
+    print(f"readable batch_solve B={B} N={N} on the card: f32 {solve_s * 1e3:.1f} ms (host "
+          f"clock, one call), max |X,U - K1| {err:.3e} on {int(keep.sum())} lanes, "
+          f"{flips.size} lanes flipped; f64 {solve64_s * 1e3:.1f} ms, card vs CPU max "
+          f"|X,U diff| {d64:.3e}", flush=True)
+
+    # 3. The readable tick against the two-kernel tick, same carry, same draws.
+    mcfg = MPCConfig(N=N, dt=DT)
+    scfg = SampleConfig(batch_size=B, f_ext_std=20.0, f_ext_resample_std=1.0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x0 = initial_state(dev)
+    carry0 = init_loop_carry(model, mcfg, scfg, x0, F_TRUE0, gen)
+    draws = [draw_tick(gen, scfg, PERTURBED_PLANT, dev, torch.float32)
+             for _ in range(READABLE_MAX_TICKS)]
+    ref = fig8_reference()
+
+    def loop(ticks, fused):
+        return run_sampled_mpc(model, cost, sqp, mcfg, scfg, x0, ref, ticks, F_TRUE0, None,
+                               plant_cfg=PERTURBED_PLANT, carry0=carry0, draws=draws[:ticks],
+                               fused=fused)[1]
+
+    t0 = time.perf_counter()
+    loop(2, False)
+    torch.cuda.synchronize()
+    est = (time.perf_counter() - t0) / 2
+    T = int(min(READABLE_MAX_TICKS, max(5, READABLE_BUDGET_S // est)))
+    runs = {}
+    for name, fused in (("readable", False), ("two-kernel", "auto")):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trace = loop(T, fused)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / T * 1e3
+        counts = read_counts()
+        want = 0 if fused is False else T
+        check(all(n == want for n in counts.values()),
+              f"{name} tick: launches {counts} in {T} ticks, want {want} each")
+        for f, v in trace._asdict().items():
+            if v.is_floating_point():
+                check(bool(torch.isfinite(v).all()), f"{name} tick: trace {f} not finite")
+        runs[name] = (trace, ms, counts, measure.profile_device(lambda n: loop(n, fused), 1))
+    (tr, r_ms, _, r_prof), (tf, f_ms, f_counts, f_prof) = runs["readable"], runs["two-kernel"]
+    check(int(tr.best_idx[0]) == int(tf.best_idx[0]),
+          f"first tick's winner: readable {int(tr.best_idx[0])}, two-kernel {int(tf.best_idx[0])}")
+    du = ((tr.u[0] - tf.u[0]).abs().max() / tf.u[0].abs().max().clamp(min=1.0)).item()
+    check(du <= 6e-3, f"first tick's u: scaled difference {du:.3e} > 6e-3")
+    te_r = tr.tracking_error.double().mean().item()
+    te_f = tf.tracking_error.double().mean().item()
+    same = int((tr.best_idx == tf.best_idx).sum())
+    print(f"readable tick (fused=False) B={B} N={N} perturbed plant, {T} ticks: "
+          f"{r_ms:.1f} ms/tick (host clock); profiled tick {r_prof['kernel_launches_per_tick']:g} "
+          f"device kernels and copies, {r_prof['device_ms_per_tick']:.2f} ms device time, busy "
+          f"{100 * r_prof['busy_share']:.1f}%; two-kernel tick: {f_ms:.3f} ms/tick, "
+          f"{f_prof['kernel_launches_per_tick']:g} kernels and copies; first tick u scaled "
+          f"diff {du:.3e}; winners equal on {same} of {T} ticks; mean tracking error readable "
+          f"{te_r:.4f} m, two-kernel {te_f:.4f} m", flush=True)
+    check(abs(te_r - te_f) <= 0.1 * te_f, f"readable mean tracking {te_r:.4f} m not within "
+          f"10% of the two-kernel run's {te_f:.4f} m")
+
+    # 4. formulation="reference" is outside K1's coverage: the readable
+    # solver, with the fallback warning.
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("indy7_mpc_tpu_torch.solvers.select")
+    log.addHandler(handler)
+    reset_counts()
+    try:
+        x, X_warm, U_warm, f_batch = x0, carry0.X_best, carry0.U_best, carry0.f_batch
+        goals = torch.as_tensor(ref[:N], dtype=torch.float32, device=dev)
+        for _ in range(3):
+            out = sampled_tick(model, CostConfig(formulation="reference"), sqp, scfg, DT, gen,
+                               x, x, torch.zeros(6, device=dev), goals, X_warm, U_warm, f_batch)
+            for f, v in out._asdict().items():
+                if v.is_floating_point():
+                    check(bool(torch.isfinite(v).all()), f"reference tick: {f} not finite")
+            X_warm, U_warm, f_batch = out.X_best, out.U_best, out.f_batch
+    finally:
+        log.removeHandler(handler)
+    counts = read_counts()
+    check(all(n == 0 for n in counts.values()), f"reference tick launched kernels: {counts}")
+    check(len(records) == 3 and all("readable solver" in r.getMessage() for r in records),
+          f"reference tick: {len(records)} fallback warnings, want 3")
+    print(f"sampled_tick formulation='reference': 3 ticks on the readable solver, finite, "
+          f"no kernel launch; warning: {records[0].getMessage() if records else None}",
+          flush=True)
+    return f_counts, {"ticks": T, "readable_ms_per_tick": r_ms, "two_kernel_ms_per_tick": f_ms,
+                      "readable_launches_per_tick": r_prof["kernel_launches_per_tick"],
+                      "readable_device_ms_per_tick": r_prof["device_ms_per_tick"],
+                      "readable_busy_share": r_prof["busy_share"],
+                      "two_kernel_launches_per_tick": f_prof["kernel_launches_per_tick"],
+                      "tracking_readable_m": te_r, "tracking_two_kernel_m": te_f,
+                      "alpha_flips": int(flips.size), "solve_f32_ms": solve_s * 1e3,
+                      "solve_f64_ms": solve64_s * 1e3, "f64_card_vs_cpu": d64}
+
+
+def phase_mjcf_plant(dev):
+    import math
+
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch.config import (
+        PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig,
+    )
+    from indy7_mpc_tpu_torch.models import indy7_from_urdf, indy7_mjcf
+    from indy7_mpc_tpu_torch.mpc import run_sampled_mpc
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels import _abi
+    from indy7_mpc_tpu_torch.sim.plant import perturb_model
+
+    controller, plant = indy7_from_urdf(torch.float32, dev), indy7_mjcf(torch.float32, dev)
+    smc = LR.static_model(controller)
+    smp = LR.static_model(perturb_model(plant, PERTURBED_PLANT))
+    consts = _abi.model_consts(smp)
+    check(all(math.isinf(v) and v > 0 for v in consts.velocity_limit),
+          "MJCF plant: the +inf velocity limits did not reach K2's constants")
+    gen = torch.Generator(device=dev).manual_seed(42)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, trace = run_sampled_mpc(
+        controller, CostConfig(), SQPConfig(max_iters=SQP_ITERS), MPCConfig(N=N, dt=DT),
+        SampleConfig(batch_size=B, f_ext_std=20.0, f_ext_resample_std=1.0),
+        initial_state(dev), fig8_reference(), TICKS, F_TRUE0, gen,
+        plant_cfg=PERTURBED_PLANT, plant_model=plant,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    for name, n in launches.items():
+        check(n == TICKS, f"MJCF plant: {name} launched {n} times in {TICKS} ticks")
+    for name, v in trace._asdict().items():
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"MJCF plant: trace {name} not finite")
+    te = trace.tracking_error.cpu().numpy().astype(np.float64)
+    tail = te[-100:].mean()
+    f_err = np.linalg.norm((trace.f_est - trace.f_true)[:, :3].cpu().numpy(), axis=1)
+    print(f"URDF controller / MJCF plant run_sampled_mpc B={B} N={N} perturbed, {TICKS} ticks: "
+          f"{wall / TICKS * 1e6:.1f} us/tick (host clock, first tick included); tracking "
+          f"error mean {te.mean():.4f} m, p50 {np.percentile(te, 50):.4f} m, p95 "
+          f"{np.percentile(te, 95):.4f} m, last-100 mean {tail:.4f} m; wrench estimate error "
+          f"p50 {np.percentile(f_err, 50):.2f} N", flush=True)
+    check(tail < 0.2, f"MJCF plant: last-100 tracking error {tail:.4f} m >= 0.2 m")
+
+    U0_T = 3.0 * torch.randn((6, B), generator=gen, device=dev)
+    noise = PERTURBED_PLANT.torque_noise_std * torch.randn(
+        (PERTURBED_PLANT.substeps, 6), generator=gen, device=dev)
+    best, k2_err = check_k2_call("K2 with the MJCF plant", smc, smp, PERTURBED_PLANT, (
+        final.x, final.x_last, final.u_last, final.f_batch.T.contiguous(), U0_T,
+        final.f_true, noise))
+    print(f"K2 with the MJCF plant's constants B={B}: winner {best}, max abs err {k2_err:.3e}",
+          flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -560,6 +813,9 @@ def main():
               "runtime_in_process": phase_runtime_inprocess(dev),
               "runtime_udp": phase_runtime_udp(dev)}
     phases["run_mpc"], single_lane = phase_point_to_goal(dev)
+    phases["readable_vs_two_kernel"], readable = phase_readable(dev)
+    phases["mjcf_plant"] = phase_mjcf_plant(dev)
+    print("readable: " + json.dumps(readable), flush=True)
     for k in kernels:
         k["launches"] = phases["run_sampled_mpc"][k["name"]]
         k["launches_by_phase"] = {p: n[k["name"]] for p, n in phases.items()}

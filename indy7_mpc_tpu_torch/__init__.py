@@ -12,7 +12,16 @@ The two hot kernels are hand-written in CUDA C++ for Hopper (``csrc/``):
   * ``ops/kernels/tick_kernel.py`` — consensus, argmin, plant and FK (K2).
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and
-launches the CUDA kernel for CUDA tensors.  The configuration dataclasses
+launches the CUDA kernel for CUDA tensors.  Beside them sits the readable
+layer: the spatial algebra and rigid-body dynamics on ``RobotModel``s
+(``models/spatial.py``, ``dynamics/``), the URDF and MJCF parsers
+(``models/urdf.py``, ``models/mjcf.py``, on the package's own copies of
+the description files), the QP blocks with autodiff linearization and
+both cost formulations (``ops/kkt.py``), the Riccati sweep and a dense KKT
+oracle (``ops/riccati.py``, ``ops/dense_kkt.py``), the vmap-style batched
+SQP solver (``solvers/sqp.py``) and the readable tick
+(``mpc/readable_tick.py``, ``fused=False``).  It is the kernels' oracle
+and the path of every configuration outside K1's coverage.  The configuration dataclasses
 (``config.py``) have the TPU package's fields and defaults, and the port
 reads them by attribute, so the TPU package's config objects drive it
 too.  This package never imports JAX or the TPU package.

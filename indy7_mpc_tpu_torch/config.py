@@ -3,9 +3,9 @@ package's ``indy7_mpc_tpu/config.py``).
 
 Kept as a copy so that this package runs without the TPU package present;
 tests/test_torch_model.py pins every field and default to the original.
-SQPConfig leaves out the pcg/admm settings of QP backends the port lacks.
-The port's functions read these by attribute, so either package's config
-objects work with it.
+SQPConfig leaves out the pcg/admm settings of the QP backends the port
+lacks (ROADMAP item 5).  The port's functions read these by attribute, so
+either package's config objects work with it.
 """
 from __future__ import annotations
 
@@ -20,8 +20,9 @@ class CostConfig:
     torque regularization ``dQ``/``R`` scaled by ``1/(|ee_err| + eps)``
     when ``regularize`` is on.  ``q_barrier`` weights the joint-range
     barrier ``sum_j relu(|q_j| - (limit_j - margin))^2`` (0 disables it).
-    ``formulation``: "gn" (delta-variable Gauss-Newton, the only one the
-    port implements) or "reference".
+    ``formulation``: "gn" (delta-variable Gauss-Newton: kernel K1 and the
+    readable solver) or "reference" (the reference's absolute-variable
+    blocks: the readable solver only).
     """
 
     dQ: float = 0.01
@@ -38,9 +39,10 @@ class CostConfig:
 class SQPConfig:
     """SQP outer loop: iteration cap, merit line search over ``num_alphas``
     halving alphas, step-norm exit, Levenberg rho backoff.  ``qp_backend``:
-    "riccati" is the only backend the port implements, so the TPU
-    package's pcg/admm settings are left out; its SQPConfig objects work
-    here all the same."""
+    "riccati" is the only backend the port implements (K1 and the readable
+    solver); "pcg", "admm" and "riccati_pscan" raise NotImplementedError,
+    so the TPU package's pcg/admm settings are left out; its SQPConfig
+    objects work here all the same."""
 
     max_iters: int = 2
     merit_mu: float = 10.0

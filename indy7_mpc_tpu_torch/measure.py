@@ -2,7 +2,7 @@
 a long host-dispatch run.
 
 Usage: python3 -m indy7_mpc_tpu_torch.measure [--out PATH]
-           [--runtime [--stats-dir DIR] | --udp | --k2 [--baseline DIR]]
+           [--runtime [--stats-dir DIR] | --udp | --k2 [--baseline DIR] | --readable]
 
 Without ``--runtime`` it prints, and writes as JSON to ``--out``:
   * the card's name and power limit (nvidia-smi);
@@ -60,6 +60,15 @@ command's lag behind the plant's publication of the state it answers, in
 plant physics steps (2 ms of plant time): the number of the next
 period's 5 steps that still ran the previous command.  It prints the
 wrench-estimate error overall and grouped by that number.
+
+With ``--readable`` it instead takes the readable tick
+(``make_loop_tick(fused=False)``, the same fig-8 configuration) apart:
+the whole tick and each of its parts on the tick's own state after two
+warm ticks (the batched solve, and inside it the QP blocks, the Riccati
+sweep and one line search's merit over 9 candidates; the consensus; the
+plant step), each by the host clock (mean of 3 calls after a warm-up) and
+under ``torch.profiler`` (one call: device time, kernel launches, busy
+share).
 
 It checks nothing; ``chip_smoke.py`` is the correctness run.  Exits 1
 without a CUDA device.
@@ -211,13 +220,13 @@ def tick_timing(dev, warm=20, steady=50, profiled=20):
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / steady
 
-    prof = _profile(run, profiled)
+    prof = profile_device(run, profiled)
     print(f"tick B={B} N={N} perturbed: {event_ms:.4f} ms/tick (CUDA events, {steady} ticks), "
           f"{host_ms:.4f} ms/tick (host clock); {_profile_line(prof)}", flush=True)
     return {"event_ms_per_tick": event_ms, "host_ms_per_tick": host_ms, **prof}
 
 
-def _profile(run, n):
+def profile_device(run, n):
     """Device time per kernel over ``run(n)`` under ``torch.profiler``; the
     device time over the window's wall time is the busy share."""
     from torch.profiler import ProfilerActivity, profile
@@ -249,6 +258,78 @@ def _profile_line(prof):
     for k in prof["kernels_ms_per_tick"][:8]:
         lines.append(f"  {k['ms']:.4f} ms/tick  x{k['launches_per_tick']:g}  {k['name'][:100]}")
     return "\n".join(lines)
+
+
+def readable_section(dev, reps=3):
+    """The readable tick at the fig-8 configuration, whole and by part."""
+    from .mpc import make_loop_tick
+    from .mpc.fused_tick import reference_window
+    from .mpc.readable_tick import readable_consensus
+    from .ops import kkt, riccati
+    from .sim.plant import plant_friction
+    from .sim.readable_plant import plant_step
+    from .solvers import sqp as readable
+
+    B, N = 64, 64
+    cost, sqp = CostConfig(), SQPConfig(max_iters=2)
+    model = indy7(torch.float32, dev)
+    mpc_cfg, sample_cfg = MPCConfig(N=N, dt=DT), SampleConfig(batch_size=B)
+    ref = reference.with_padding(
+        reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45],
+                          period=10, dt=DT, cycles=1), 200)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    tick = make_loop_tick(model, cost, sqp, mpc_cfg, sample_cfg,
+                          torch.as_tensor(ref, dtype=torch.float32, device=dev),
+                          plant_cfg=PERTURBED_PLANT, fused=False, generator=gen)
+    x0 = torch.zeros(12, dtype=torch.float32, device=dev)
+    x0[:6] = torch.tensor(INIT_Q)
+    c = init_loop_carry(model, mpc_cfg, sample_cfg, x0, F_TRUE0, gen)
+    for _ in range(2):
+        c, _ = tick(c)
+    (m,) = tick.sampled.models(torch.float32)
+    (plant,) = tick.plant.models(torch.float32)
+    goals = reference_window(tick.ref_traj, c.ref_offset, N)
+    lanes = lambda t: t[None].expand((B,) + t.shape)
+    X_b, U_b, g_b = lanes(torch.cat([c.x[None], c.X_best[1:]])), lanes(c.U_best), lanes(goals)
+    blocks = kkt.build_qp_gn(m, cost, X_b, U_b, g_b, DT, wrench_world=c.f_batch)
+    sol = riccati.solve(blocks, torch.zeros_like(X_b[:, 0]), torch.full((B,), sqp.rho, device=dev))
+    alf = torch.tensor([0.5 ** i for i in range(8)] + [0.0], device=dev)[:, None, None, None]
+    noise = PERTURBED_PLANT.torque_noise_std * torch.randn(
+        (PERTURBED_PLANT.substeps, 6), generator=gen, device=dev)
+    parts = {
+        "tick": lambda: tick(c),
+        "batch_solve": lambda: readable.batch_solve(
+            m, cost, sqp, DT, X_b[:, 0], g_b, X_b, U_b, wrench_world_batch=c.f_batch),
+        "build_qp_gn": lambda: kkt.build_qp_gn(m, cost, X_b, U_b, g_b, DT,
+                                               wrench_world=c.f_batch),
+        "riccati": lambda: riccati.solve(blocks, torch.zeros_like(X_b[:, 0]),
+                                         torch.full((B,), sqp.rho, device=dev)),
+        "merit_9_candidates": lambda: readable.merit(
+            m, cost, sqp.merit_mu, X_b + alf * sol.X, U_b + alf * sol.U, g_b, X_b[:, 0], DT,
+            c.f_batch),
+        "consensus": lambda: readable_consensus(m, c.x_last, c.u_last, c.x, DT, c.f_batch),
+        "plant_step": lambda: plant_step(
+            plant, c.x, c.u_last, DT, wrench_world=c.f_true,
+            substeps=PERTURBED_PLANT.substeps, friction=plant_friction(PERTURBED_PLANT),
+            noise=noise),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        prof = profile_device(lambda n: [fn() for _ in range(n)], 1)
+        out[name] = {"host_ms": host_ms, "device_ms": prof["device_ms_per_tick"],
+                     "launches": prof["kernel_launches_per_tick"],
+                     "busy_share": prof["busy_share"]}
+        print(f"readable {name}: {host_ms:.1f} ms (host clock), {prof['device_ms_per_tick']:.2f} "
+              f"ms device time, {prof['kernel_launches_per_tick']:g} kernel launches, busy "
+              f"{100 * prof['busy_share']:.1f}% under the profiler", flush=True)
+    return out
 
 
 def runtime_controller(dev):
@@ -283,7 +364,7 @@ def controller_timing(dev, warm=10, steady=50, profiled=20):
     del times[:]
     run(steady)
     us = np.asarray(times)
-    prof = _profile(run, profiled)
+    prof = profile_device(run, profiled)
     print(f"controller tick B=64 N=64: solve_time_us p50 {np.percentile(us, 50):.1f}, "
           f"p95 {np.percentile(us, 95):.1f} ({steady} ticks); {_profile_line(prof)}",
           flush=True)
@@ -539,6 +620,8 @@ def main(argv=None):
                     help="run the controller over UDP at each of UDP_RUNS instead")
     ap.add_argument("--k2", action="store_true", help="run only K2's section")
     ap.add_argument("--baseline", help="a checkout whose K2 K2's section times too, in turns")
+    ap.add_argument("--readable", action="store_true",
+                    help="take the readable tick apart instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -557,6 +640,8 @@ def main(argv=None):
         result["udp"] = [udp_run(dev, scale, hold) for scale, hold in UDP_RUNS for _ in range(2)]
     elif args.k2:
         result["k2"] = k2_section(args.baseline)
+    elif args.readable:
+        result["readable"] = readable_section(dev)
     else:
         print(f"K1: {K1.THREADS} threads a block by default, "
               f"{K1.shared_bytes(64)} bytes of shared memory at N=64 (N <= {K1.MAX_N})",

@@ -30,7 +30,7 @@ from ..ops.kernels.tick_kernel import tick_epilogue
 from ..ops.lane_rbd import STATIC_FIELDS, StaticModel, static_model
 from ..sim.plant import perturb_model
 from .sampled import (
-    SampledLoopCarry, SampledTickResult, SampledTrace, TickDraws,
+    SampledLoopCarry, SampledTickResult, SampledTrace, TickDraws, draw_tick,
     resample_wrench_batch,
 )
 
@@ -141,26 +141,13 @@ class FusedLoopTick(_StaticModels):
         self.generator = generator
         self.register_buffer("ref_traj", ref_traj)
 
-    def draw(self, device, dtype) -> TickDraws:
-        if self.generator is None:
-            raise ValueError("tick called without draws and without a generator")
-        g = self.generator
-        B, noise = self.sample_cfg.batch_size, bool(self.plant_cfg.torque_noise_std)
-        return TickDraws(
-            resample=torch.randn((B, 6), generator=g, device=device, dtype=dtype),
-            walk=torch.randn(3, generator=g, device=device, dtype=dtype),
-            plant=torch.randn(
-                (self.plant_cfg.substeps, 6), generator=g, device=device, dtype=dtype
-            ) if noise else None,
-        )
-
     def forward(self, carry: SampledLoopCarry, draws: Optional[TickDraws] = None):
         x = carry.x
         dtype, device = x.dtype, x.device
         kdt = torch.float32 if device.type == "cuda" else dtype
         smc, smp = self.static_models(kdt)
         if draws is None:
-            draws = self.draw(device, dtype)
+            draws = draw_tick(self.generator, self.sample_cfg, self.plant_cfg, device, dtype)
         goals = reference_window(self.ref_traj, carry.ref_offset, self.N).to(dtype)
 
         # ---- K1: the batched solve, lanes broadcast from one warm start ----

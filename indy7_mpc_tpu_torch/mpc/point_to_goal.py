@@ -70,7 +70,8 @@ def run_mpc(
       num_steps: control ticks.
       wrench_world: optional true disturbance wrench on the plant.
       solve_fn: optional ``(xs, goals, X, U, state) -> SQPResult``
-        single-lane solver override; by default the SQP kernel at B = 1
+        single-lane solver override; by default the SQP kernel at B = 1,
+        or the readable solver outside its coverage
         (``solvers.select.default_single_solve_fn``).
 
     Returns (final MPCCarry, MPCTrace stacked over ticks).
@@ -85,7 +86,7 @@ def run_mpc(
     if wrench_world is not None:
         wrench_world = torch.as_tensor(wrench_world, dtype=kdt, device=device)
     if solve_fn is None:
-        solve_fn = default_single_solve_fn(model, cost_cfg, sqp_cfg, dt)
+        solve_fn = default_single_solve_fn(model, cost_cfg, sqp_cfg, dt, device)
     sm = LR.static_model(model.to(device=device, dtype=kdt))
     plant_cfg = PlantConfig(substeps=mpc_cfg.sim_substeps)
     G = endpoints.shape[0]

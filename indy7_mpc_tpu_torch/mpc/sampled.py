@@ -4,9 +4,11 @@ Port of ``indy7_mpc_tpu/mpc/sampled.py``.  B lanes each solve the same
 tracking problem under their own hypothesized external wrench; consensus
 keeps the lane whose one-step prediction best matches the observed state,
 and the hypotheses are resampled around the winner.  The closed loop is a
-Python loop over the two-kernel tick of ``mpc/fused_tick.py``; the
-host-driven tick (:func:`sampled_tick`, which ``runtime/controller.py``
-calls) is that file's ``SampledTick``.
+Python loop over a tick (:func:`make_loop_tick`): the two-kernel tick of
+``mpc/fused_tick.py`` where kernel K1 covers the configuration and no
+solver is injected, else (or with ``fused=False``) the readable tick of
+``mpc/readable_tick.py``.  The host-driven tick (:func:`sampled_tick`,
+which ``runtime/controller.py`` calls) follows the same choice.
 
 Random numbers come from an explicit ``torch.Generator`` on the carry's
 device; a tick can instead take its draws (:class:`TickDraws`) from the
@@ -14,7 +16,7 @@ caller, which is how the tests replay the TPU package's random stream.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -89,22 +91,54 @@ def sampled_tick(
     U_warm,
     f_batch,
     normals=None,
+    batch_solve_fn: Optional[Callable] = None,
 ) -> SampledTickResult:
     """One control tick: batch-solve, score, resample, pick the control.
 
     The TPU package's ``sampled_tick`` with its PRNG key replaced by
     ``generator`` (on x_obs's device), from which the (B, 6) resampling
-    normals are drawn unless ``normals`` is given.  On CUDA it launches K1
-    and K2; on the CPU it runs their plain versions.  A caller that ticks
-    repeatedly should keep one ``fused_tick.SampledTick`` instead, which
-    builds the model constants once.
+    normals are drawn unless ``normals`` is given.  Inside K1's coverage
+    and with no ``batch_solve_fn`` it is ``fused_tick.SampledTick``: on
+    CUDA it launches K1 and K2, on the CPU it runs their plain versions.
+    Otherwise it solves with ``batch_solve_fn`` (default: the readable
+    solver, with a warning on a card) and scores on the readable plant
+    (``readable_tick.ReadableSampledTick``).  A
+    caller that ticks repeatedly should keep one tick module instead
+    (:func:`make_sampled_tick`), which builds the model constants once.
     """
-    from .fused_tick import SampledTick
-
-    tick = SampledTick(model, cost_cfg, sqp_cfg, sample_cfg, dt, generator)
+    tick = make_sampled_tick(model, cost_cfg, sqp_cfg, sample_cfg, dt, generator,
+                             batch_solve_fn, x_obs.device)
     return tick.to(x_obs.device)(
         x_obs, x_last, u_last, goals, X_warm, U_warm, f_batch, normals=normals
     )[0]
+
+
+def make_sampled_tick(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    sample_cfg: SampleConfig,
+    dt: float,
+    generator: Optional[torch.Generator] = None,
+    batch_solve_fn: Optional[Callable] = None,
+    device=None,
+):
+    """The host-driven tick module for a configuration: the two-kernel
+    ``SampledTick`` inside K1's coverage with no injected solver, else a
+    ``ReadableSampledTick`` on ``batch_solve_fn`` or the selected default
+    (the readable solver; ``device`` is the target, for its warning)."""
+    from ..solvers.select import default_batch_solve_fn, kernel_supports
+
+    if batch_solve_fn is None and kernel_supports(cost_cfg, sqp_cfg):
+        from .fused_tick import SampledTick
+
+        return SampledTick(model, cost_cfg, sqp_cfg, sample_cfg, dt, generator)
+    from .readable_tick import ReadableSampledTick
+
+    if batch_solve_fn is None:
+        batch_solve_fn = default_batch_solve_fn(model, cost_cfg, sqp_cfg, dt, device)
+    return ReadableSampledTick(model, cost_cfg, sqp_cfg, sample_cfg, dt, generator,
+                               batch_solve_fn)
 
 
 class SampledLoopCarry(NamedTuple):
@@ -138,6 +172,24 @@ class TickDraws(NamedTuple):
     plant: Optional[torch.Tensor]    # (substeps, 6) actuation noise, or None
 
 
+def draw_tick(
+    generator: Optional[torch.Generator], sample_cfg: SampleConfig,
+    plant_cfg: PlantConfig, device, dtype,
+) -> TickDraws:
+    """One closed-loop tick's draws from ``generator`` (on ``device``); the
+    plant noise only when the plant has actuation noise."""
+    if generator is None:
+        raise ValueError("tick called without draws and without a generator")
+    g, B = generator, sample_cfg.batch_size
+    return TickDraws(
+        resample=torch.randn((B, 6), generator=g, device=device, dtype=dtype),
+        walk=torch.randn(3, generator=g, device=device, dtype=dtype),
+        plant=torch.randn(
+            (plant_cfg.substeps, 6), generator=g, device=device, dtype=dtype
+        ) if plant_cfg.torque_noise_std else None,
+    )
+
+
 def init_loop_carry(
     model: RobotModel,
     mpc_cfg: MPCConfig,
@@ -162,6 +214,59 @@ def init_loop_carry(
     )
 
 
+def make_loop_tick(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    mpc_cfg: MPCConfig,
+    sample_cfg: SampleConfig,
+    ref_traj,
+    f_true_walk: bool = True,
+    batch_solve_fn: Optional[Callable] = None,
+    plant_cfg: Optional[PlantConfig] = None,
+    plant_model: Optional[RobotModel] = None,
+    fused: object = "auto",
+    generator: Optional[torch.Generator] = None,
+):
+    """``tick(carry, draws=None) -> (carry, SampledTrace)``, one closed-loop
+    step (controller tick, ground-truth plant step, reference advance), on
+    the device of ``ref_traj`` (move it with ``.to``).
+
+    ``fused="auto"`` (default) selects the two-kernel ``FusedLoopTick``
+    (mpc/fused_tick.py) when it covers the config: the production solver
+    config (gn + riccati) and no injected ``batch_solve_fn``.
+    ``fused=True`` forces it (raising outside coverage); ``fused=False``
+    keeps the readable tick (mpc/readable_tick.py), the fused tick's
+    oracle, on ``batch_solve_fn`` or the readable solver.  Outside the
+    coverage the readable tick's default solver comes from
+    ``solvers.select`` (a warning on a card; unported QP backends raise).
+    """
+    from ..solvers.select import default_batch_solve_fn, kernel_supports
+
+    ref = torch.as_tensor(ref_traj)
+    covered = batch_solve_fn is None and kernel_supports(cost_cfg, sqp_cfg)
+    if fused is True or (fused == "auto" and covered):
+        from .fused_tick import make_fused_loop_tick
+
+        return make_fused_loop_tick(
+            model, cost_cfg, sqp_cfg, mpc_cfg, sample_cfg, ref,
+            f_true_walk=f_true_walk, plant_cfg=plant_cfg, plant_model=plant_model,
+            generator=generator,
+        )
+    if fused not in (False, "auto"):
+        raise ValueError(f"fused must be 'auto', True or False, got {fused!r}")
+    from .readable_tick import ReadableLoopTick
+
+    if batch_solve_fn is None and not covered:
+        batch_solve_fn = default_batch_solve_fn(model, cost_cfg, sqp_cfg, mpc_cfg.dt,
+                                                ref.device)
+    return ReadableLoopTick(
+        model, cost_cfg, sqp_cfg, mpc_cfg, sample_cfg, ref,
+        f_true_walk=f_true_walk, batch_solve_fn=batch_solve_fn, plant_cfg=plant_cfg,
+        plant_model=plant_model, generator=generator,
+    ).to(ref.device)
+
+
 def run_sampled_mpc(
     model: RobotModel,
     cost_cfg: CostConfig,
@@ -178,11 +283,15 @@ def run_sampled_mpc(
     plant_model: Optional[RobotModel] = None,
     carry0: Optional[SampledLoopCarry] = None,
     draws: Optional[Sequence[TickDraws]] = None,
+    batch_solve_fn: Optional[Callable] = None,
+    fused: object = "auto",
 ):
     """Closed loop: sampled controller against the device plant.
 
-    Runs on x0's device: on CUDA through the SQP and tick kernels, on the
-    CPU through their plain versions.
+    Runs on x0's device, on the tick :func:`make_loop_tick` selects: the
+    two-kernel tick by default (on CUDA the SQP and tick kernels, on the
+    CPU their plain versions), the readable tick with ``fused=False``, an
+    injected ``batch_solve_fn`` or a configuration outside K1's coverage.
 
     Args:
       ref_traj: (T_ref, 3) EE reference positions, T_ref >= num_steps + N.
@@ -194,16 +303,17 @@ def run_sampled_mpc(
       plant_model: optional distinct model for the plant.
       carry0: start from this carry instead of :func:`init_loop_carry`.
       draws: per-tick draws to use instead of the generator's.
+      batch_solve_fn: ``(xs_b, goals_b, X_b, U_b, wrench_b) -> SQPResult``
+        solver for the readable tick.
+      fused: "auto", True or False (:func:`make_loop_tick`).
 
     Returns (final carry, SampledTrace stacked over ticks).
     """
-    from .fused_tick import make_fused_loop_tick
-
-    tick = make_fused_loop_tick(
+    tick = make_loop_tick(
         model, cost_cfg, sqp_cfg, mpc_cfg, sample_cfg,
         torch.as_tensor(ref_traj, dtype=x0.dtype, device=x0.device),
-        f_true_walk=f_true_walk, plant_cfg=plant_cfg, plant_model=plant_model,
-        generator=generator,
+        f_true_walk=f_true_walk, batch_solve_fn=batch_solve_fn, plant_cfg=plant_cfg,
+        plant_model=plant_model, fused=fused, generator=generator,
     )
     carry = carry0
     if carry is None:

@@ -71,7 +71,7 @@ def run_tracking_mpc(
     like = lambda a: None if a is None else torch.as_tensor(a, dtype=kdt, device=device)
     ref_traj, wrench_world, solver_wrench = map(like, (ref_traj, wrench_world, solver_wrench))
     sm = LR.static_model(model.to(device=device, dtype=kdt))
-    solve = default_single_solve_fn(model, cost_cfg, sqp_cfg, dt)
+    solve = default_single_solve_fn(model, cost_cfg, sqp_cfg, dt, device)
     plant_cfg = PlantConfig(substeps=mpc_cfg.sim_substeps)
 
     X0 = torch.zeros((N, model.nx), dtype=kdt, device=device)

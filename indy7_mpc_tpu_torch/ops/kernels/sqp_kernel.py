@@ -68,7 +68,9 @@ def require_kernel_config(cost_cfg: CostConfig, sqp_cfg: SQPConfig) -> None:
     """The configurations the kernel and its plain version implement: the
     Gauss-Newton formulation with the Riccati QP backend.  Anything else
     raises ValueError."""
-    if cost_cfg.formulation != "gn" or sqp_cfg.qp_backend != "riccati":
+    from ...solvers.select import kernel_supports
+
+    if not kernel_supports(cost_cfg, sqp_cfg):
         raise ValueError(
             "the SQP kernel and its plain version implement formulation='gn' with "
             f"qp_backend='riccati' only, got {cost_cfg.formulation!r} with "

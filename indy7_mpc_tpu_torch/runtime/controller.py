@@ -18,12 +18,15 @@ Tick semantics mirror ``GATO_Controller.joint_callback``
 
 The controller's state is float32 on its ``device``, the card unless the
 caller passes ``device="cpu"``; on CUDA each tick launches the SQP kernel
-(K1) once and the tick-epilogue kernel (K2) once.
+(K1) once and the tick-epilogue kernel (K2) once.  With an injected
+``batch_solve_fn``, or a configuration outside K1's coverage, the tick is
+the readable one (``mpc/readable_tick.py``) on that solver or on the
+readable solver.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -32,8 +35,8 @@ from torch import nn
 from ..config import CostConfig, MPCConfig, SampleConfig, SQPConfig
 from ..models.convert import controller_state_from_npz
 from ..models.robot import RobotModel
-from ..mpc.fused_tick import SampledTick, reference_window
-from ..mpc.sampled import init_wrench_batch
+from ..mpc.fused_tick import reference_window
+from ..mpc.sampled import init_wrench_batch, make_sampled_tick
 from .stats import RunRecorder
 
 JOINT_STATE_TIMEOUT = 10.0  # gato_controller.py:16-17
@@ -51,11 +54,12 @@ class ControllerTick(nn.Module):
     """
 
     def __init__(self, model, cost_cfg, sqp_cfg, mpc_cfg, sample_cfg, ref_traj,
-                 generator):
+                 generator, batch_solve_fn=None, device=None):
         super().__init__()
         self.N = mpc_cfg.N
-        self.sampled = SampledTick(
-            model, cost_cfg, sqp_cfg, sample_cfg, mpc_cfg.dt, generator
+        self.sampled = make_sampled_tick(
+            model, cost_cfg, sqp_cfg, sample_cfg, mpc_cfg.dt, generator,
+            batch_solve_fn, device,
         )
         self.register_buffer("ref_traj", torch.as_tensor(ref_traj))
 
@@ -82,6 +86,7 @@ class SampledController:
         sample_cfg: SampleConfig,
         ref_traj: np.ndarray,
         seed: int = 42,
+        batch_solve_fn: Optional[Callable] = None,
         f_ext_actual=None,
         warmup: bool = True,
         device="cuda",
@@ -114,7 +119,7 @@ class SampledController:
             model.to(device=self.device, dtype=torch.float32), cost_cfg,
             sqp_cfg, mpc_cfg, sample_cfg,
             torch.as_tensor(np.asarray(ref_traj), dtype=torch.float32),
-            self.generator,
+            self.generator, batch_solve_fn, self.device,
         ).to(self.device)
         if warmup:
             # Cold-start throwaway tick from zeros (the reference's

@@ -1,21 +1,34 @@
-"""Solver result types (port of ``indy7_mpc_tpu/solvers/sqp.py:30-69``).
+"""The readable batched SQP solver and the solver result types (port of
+``indy7_mpc_tpu/solvers/sqp.py``).
 
-The port has no vmap solver and no iterative QP backends, so the state is
-the per-lane Levenberg rho only.
+The reference's SQP outer loop, on any lane count at once: linearize
+(ops/kkt.py), solve the QP by the Riccati sweep (ops/riccati.py), merit
+line search over ``num_alphas`` halving alphas (mu = 10), step-norm exit,
+iteration cap, per-lane Levenberg rho raised on rejection.  Both cost
+formulations ("gn" and "reference").  It is the oracle of kernel K1 (its
+derivatives come from autodiff, not from K1's ``Dual`` code) and the
+solver for every configuration outside K1's coverage.
+
+Control flow is fixed-shape: a Python loop over ``max_iters`` with masked
+per-lane updates, no host reads.  ``stats.iterations`` counts the
+iterations a lane ran while not done, rejected ones included, as the TPU
+package's readable solver does (K1 counts accepted steps).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import SQPConfig
+from ..config import CostConfig, SQPConfig
+from ..models.robot import RobotModel
+from ..ops import kkt, riccati
 
 
 class SolverState(NamedTuple):
     """Per-lane solver state carried across solves (the Levenberg rho)."""
 
-    rho: torch.Tensor  # (B,)
+    rho: torch.Tensor  # (*b,)
 
     @staticmethod
     def init(cfg: SQPConfig, batch_shape=(), device=None):
@@ -28,9 +41,9 @@ class SolverState(NamedTuple):
 class SQPStats(NamedTuple):
     """Per-solve diagnostics (the reference's stats schema)."""
 
-    iterations: torch.Tensor  # (B,) iteration count; see each solver
-    step_sizes: torch.Tensor  # (B, max_iters) ||alpha * dz|| per iteration
-    alphas: torch.Tensor      # (B, max_iters) line-search alphas (0 = reject)
+    iterations: torch.Tensor  # (*b,) iteration count; see each solver
+    step_sizes: torch.Tensor  # (*b, max_iters) ||alpha * dz|| per iteration
+    alphas: torch.Tensor      # (*b, max_iters) line-search alphas (0 = reject)
 
 
 class SQPResult(NamedTuple):
@@ -38,3 +51,147 @@ class SQPResult(NamedTuple):
     U: torch.Tensor
     state: SolverState
     stats: SQPStats
+
+
+#: QP backends of the TPU package that the port does not have yet.
+UNPORTED_QP_BACKENDS = ("pcg", "admm", "riccati_pscan")
+
+
+def require_qp_backend(sqp_cfg: SQPConfig) -> None:
+    """Raise NotImplementedError for a QP backend the port lacks."""
+    if sqp_cfg.qp_backend in UNPORTED_QP_BACKENDS:
+        raise NotImplementedError(
+            f"qp_backend={sqp_cfg.qp_backend!r} is not ported yet (ROADMAP "
+            "section 1, item 5: the PCG, ADMM and parallel-scan QP backends); "
+            "the port solves with qp_backend='riccati'"
+        )
+    if sqp_cfg.qp_backend != "riccati":
+        raise ValueError(f"unknown qp_backend {sqp_cfg.qp_backend!r}")
+
+
+def merit(model, cost_cfg, mu, X, U, goals, x0_prev, dt, wrench_world=None):
+    """Merit = nonlinear cost + mu * constraint violation (the reference's
+    osqp_sqp.py), per lane: (*b,)."""
+    qc, vc, uc = kkt.eepos_cost(model, cost_cfg, X, U, goals)
+    cv = kkt.integrator_err(model, X, U, dt, wrench_world=wrench_world)
+    cv = cv + torch.linalg.norm(X[..., 0, :] - x0_prev, dim=-1)
+    return qc + vc + uc + mu * cv
+
+
+def solve(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    dt: float,
+    xs,
+    goals,
+    X,
+    U,
+    state: Optional[SolverState] = None,
+    wrench_world=None,
+) -> SQPResult:
+    """SQP solve of every lane at once, on the inputs' device and dtype.
+
+    xs (*b, nx), goals (*b, N, 3), X (*b, N, nx), U (*b, N-1, nu),
+    wrench_world (*b, 6) or None, ``state.rho`` (*b,); one lane is
+    ``*b = ()``.  The model is moved to the inputs' device and dtype.
+    """
+    require_qp_backend(sqp_cfg)
+    batch, dtype, device = xs.shape[:-1], X.dtype, X.device
+    model = model.to(device=device, dtype=dtype)
+    if state is None:
+        state = SolverState.init(sqp_cfg, batch, device)
+    rho = state.rho.to(dtype)
+    X = torch.cat([xs[..., None, :], X[..., 1:, :]], -2)  # pin the initial state
+
+    # Exact powers of two (a CUDA pow of 0.5 can round 0.0625 down by an ulp).
+    alphas = torch.tensor([0.5 ** i for i in range(sqp_cfg.num_alphas)], dtype=dtype,
+                          device=device)
+    # Candidates: the alphas, then alpha = 0 (the base merit).
+    cand = torch.cat([alphas, torch.zeros(1, dtype=dtype, device=device)])
+    cand = cand.reshape((-1,) + (1,) * X.dim())
+    done = torch.zeros(batch, dtype=torch.bool, device=device)
+    iters = torch.zeros(batch, dtype=torch.int32, device=device)
+    step_log, alpha_log = [], []
+    gn = cost_cfg.formulation == "gn"
+
+    for _ in range(sqp_cfg.max_iters):
+        if gn:
+            blocks = kkt.build_qp_gn(model, cost_cfg, X, U, goals, dt,
+                                     wrench_world=wrench_world)
+            sol = riccati.solve(blocks, xs - X[..., 0, :], rho)
+            dX, dU = sol.X, sol.U
+        else:
+            blocks = kkt.build_qp(model, cost_cfg, X, U, goals, dt,
+                                  wrench_world=wrench_world)
+            sol = riccati.solve(blocks, xs, rho)
+            dX, dU = sol.X - X, sol.U - U
+
+        merits = merit(
+            model, cost_cfg, sqp_cfg.merit_mu, X + cand * dX, U + cand * dU,
+            goals, X[..., 0, :], dt, wrench_world,
+        )
+        ok = merits[:-1] <= merits[-1]
+        any_ok = ok.any(0)
+        first = ok.to(torch.int8).argmax(0)  # alphas descend: the first wins
+        alpha = torch.where(any_ok, alphas[first], 0.0)
+
+        # Masked update: once done (or rejected), the trajectory freezes.
+        take = ~done & (alpha > 0.0)
+        scale = torch.where(take, alpha, 0.0)
+        X = X + scale[..., None, None] * dX
+        U = U + scale[..., None, None] * dU
+        step_norm = scale * torch.sqrt((dX * dX).sum((-2, -1)) + (dU * dU).sum((-2, -1)))
+        step_log.append(step_norm)
+        alpha_log.append(torch.where(done, 0.0, alpha))
+        iters = iters + (~done).to(torch.int32)
+
+        # Levenberg rho: raise on rejection, keep on acceptance.
+        rejected = ~done & ~any_ok
+        rho = torch.clamp(
+            torch.where(rejected, rho * sqp_cfg.rho_factor, rho),
+            sqp_cfg.rho, sqp_cfg.rho_max,
+        )
+        done = done | (take & (step_norm < sqp_cfg.step_tol))
+
+    return SQPResult(
+        X=X,
+        U=U,
+        state=SolverState(rho=rho.to(state.rho.dtype)),
+        stats=SQPStats(
+            iterations=iters,
+            step_sizes=torch.stack(step_log, -1),
+            alphas=torch.stack(alpha_log, -1),
+        ),
+    )
+
+
+def batch_solve(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    dt: float,
+    xs_batch,
+    goals_batch,
+    X_batch,
+    U_batch,
+    state: Optional[SolverState] = None,
+    wrench_world_batch=None,
+) -> SQPResult:
+    """Lane-batched solve (the reference's ``SQPSolverfloat_B.solve``).
+
+    Every argument carries a leading lane axis B; ``wrench_world_batch``
+    is (B, 6) or None.
+    """
+    return solve(
+        model, cost_cfg, sqp_cfg, dt, xs_batch, goals_batch, X_batch, U_batch,
+        state=state, wrench_world=wrench_world_batch,
+    )
+
+
+def batch_solve_fn(model: RobotModel, cost_cfg: CostConfig, sqp_cfg: SQPConfig, dt: float):
+    """``(xs_b, goals_b, X_b, U_b, wrench_b) -> SQPResult`` on this solver,
+    the signature every tick takes its batched solver in."""
+    return lambda xs, g, X, U, w: batch_solve(
+        model, cost_cfg, sqp_cfg, dt, xs, g, X, U, wrench_world_batch=w
+    )

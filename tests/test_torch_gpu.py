@@ -21,7 +21,8 @@ import torch
 from indy7_mpc_tpu_torch.config import (
     PERTURBED_PLANT, CostConfig, MPCConfig, PlantConfig, SampleConfig, SQPConfig,
 )
-from indy7_mpc_tpu_torch.models import indy7
+from indy7_mpc_tpu_torch.models import indy7, indy7_mjcf
+from indy7_mpc_tpu_torch.models.robot import FIELDS
 from indy7_mpc_tpu_torch.mpc import (
     TickDraws, find_best_lane, init_loop_carry, reference, run_sampled_mpc, sampled_tick,
 )
@@ -37,6 +38,7 @@ from indy7_mpc_tpu_torch.runtime import (
 from indy7_mpc_tpu_torch.sim import native
 from indy7_mpc_tpu_torch.sim.kernel_plant import kernel_plant_args
 from indy7_mpc_tpu_torch.sim.plant import perturb_model, predict_next_states
+from indy7_mpc_tpu_torch.solvers import sqp as readable
 from indy7_mpc_tpu_torch.solvers.sqp import SolverState
 from indy7_mpc_tpu_torch.solvers.sqp_cuda import single_solve_fn
 from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
@@ -493,3 +495,86 @@ def test_native_plant_udp_loop_on_the_card(cuda, tmp_path):
     te = rec._fetch("tracking_errors")
     assert te.shape == (20,) and np.isfinite(te).all()
     assert np.isfinite(rec._fetch("joint_positions")).all()
+
+
+# ---------------------------------------------------------------------------
+# The readable layer and the MJCF plant on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("formulation", ["gn", "reference"])
+def test_readable_solve_on_the_card_matches_cpu_f64(cuda, formulation):
+    """The readable solver in float64 on the card and on the CPU: the same
+    line-search choices and iteration counts, X and U to 1e-9."""
+    rng = np.random.default_rng(21)
+    w = rng.normal(size=(B, 6)) * 8
+    w[:, 3:] = 0.0
+    host = [torch.as_tensor(rng.normal(size=shape) * scale) for shape, scale in (
+        ((B, 12), 0.05), ((B, N, 3), 0.3), ((B, N, 12), 0.05), ((B, N - 1, 6), 0.5))]
+    host.append(torch.as_tensor(w))
+    cost = CostConfig(formulation=formulation)
+    got = readable.batch_solve(indy7(torch.float64, cuda), cost, SQP, DT,
+                               *(a.to(cuda) for a in host[:4]), wrench_world_batch=host[4].to(cuda))
+    want = readable.batch_solve(indy7(torch.float64), cost, SQP, DT, *host[:4],
+                                wrench_world_batch=host[4])
+    assert got.X.device.type == "cuda"
+    np.testing.assert_array_equal(got.stats.alphas.cpu().numpy(), want.stats.alphas.numpy())
+    np.testing.assert_array_equal(got.stats.iterations.cpu().numpy(),
+                                  want.stats.iterations.numpy())
+    for name in ("X", "U"):
+        np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
+                                   getattr(want, name).numpy(), rtol=0, atol=1e-9, err_msg=name)
+
+
+def test_readable_f32_solve_matches_k1_full_width(cuda):
+    """B=64, N=64, float32: the readable solver (its derivatives by
+    autodiff, its sweep upcast to f64) against K1 (a one-tangent Dual, an
+    f32 sweep): at most 2 lanes may flip an alpha from f32 rounding; the
+    others have equal alphas and X, U within K1's scaled 6e-3."""
+    Bf, Nf = 64, 64
+    args, kw = _k1_inputs(cuda, Bf, Nf)
+    model = indy7(torch.float32, cuda)
+    k = sqp_solve(LR.static_model(model), COST, SQP, DT, *args, **kw)
+    r = readable.batch_solve(model, COST, SQP, DT, args[0].T,
+                             *(a.permute(2, 0, 1) for a in args[1:]),
+                             wrench_world_batch=kw["wrench"].T)
+    flips = (k[3].T != r.stats.alphas).any(1)
+    assert int(flips.sum()) <= 2
+    for kt, rt in ((k[0].permute(2, 0, 1), r.X), (k[1].permute(2, 0, 1), r.U)):
+        assert torch.isfinite(rt).all()
+        scale = rt.abs().amax(dim=(1, 2)).clamp(min=1.0)
+        assert ((kt - rt).abs() / scale[:, None, None])[~flips].max().item() <= 6e-3
+
+
+@pytest.mark.parametrize("saturation", [False, True])
+def test_tick_kernel_mjcf_plant_matches_plain(cuda, saturation):
+    """K2 with the MJCF plant's constants (perturbed): its +inf velocity
+    limits reach the kernel unchanged, so velocity saturation changes no
+    bit; against the plain version at the epilogue tolerances."""
+    cfg = dataclasses.replace(PERTURBED_PLANT, velocity_saturation=saturation)
+    smc = LR.static_model(indy7(torch.float32, cuda))
+    smp = LR.static_model(perturb_model(indy7_mjcf(torch.float32, cuda), cfg))
+    assert torch.isinf(smp.velocity_limit).all()
+    rng = np.random.default_rng(6)
+    x_cur = np.r_[INIT_Q[:5], 3.7, 3.0 * np.ones(6)]  # fast, joint 5 near its stop
+    f_batch = rng.normal(size=(6, B)) * 20.0
+    f_batch[3:] = 0.0
+    f_batch[:, 0] = 0.0
+    args = [_f32(a, cuda) for a in (
+        x_cur, x_cur + 0.01 * rng.normal(size=12), 5.0 * rng.normal(size=6), f_batch,
+        3.0 * rng.normal(size=(6, B)), F_TRUE0,
+        cfg.torque_noise_std * rng.normal(size=(cfg.substeps, 6)),
+    )]
+    _k2_against_plain(smc, smp, cfg, args)
+    unsaturated = dataclasses.replace(cfg, velocity_saturation=False)
+    a = tick_epilogue(smc, smp, cfg, DT, *args)
+    b = tick_epilogue(smc, smp, unsaturated, DT, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(a.x_next, b.x_next)
+
+
+def test_indy7_mjcf_on_the_card_equals_cpu(cuda):
+    for dtype in (torch.float32, torch.float64):
+        on_card, on_cpu = indy7_mjcf(dtype, cuda), indy7_mjcf(dtype)
+        for f in FIELDS:
+            assert getattr(on_card, f).device.type == "cuda"
+            assert torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)), f

@@ -117,3 +117,19 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+
+
+@pytest.mark.parametrize("name", ["indy7.urdf", "indy7.xml"])
+def test_description_files_are_byte_copies(name):
+    """The port parses its own copies of the robot description files, byte
+    for byte the TPU package's."""
+    import indy7_mpc_tpu_torch.models as port_models
+
+    port_dir = os.path.join(REPO, "indy7_mpc_tpu_torch", "description")
+    assert os.path.samefile(port_models.DESCRIPTION_DIR, port_dir)
+    assert {port_models.INDY7_URDF, port_models.INDY7_MJCF} <= {
+        os.path.join(port_models.DESCRIPTION_DIR, n) for n in ("indy7.urdf", "indy7.xml")}
+    with open(os.path.join(port_dir, name), "rb") as f:
+        port = f.read()
+    with open(os.path.join(REPO, "indy7_mpc_tpu", "description", name), "rb") as f:
+        assert port == f.read()

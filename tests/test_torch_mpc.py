@@ -33,13 +33,35 @@ WRENCH = [5.0, 0.0, 15.0, 0.0, 0.0, 0.0]
 
 @pytest.mark.parametrize("cost, sqp", [
     (cfg.CostConfig(), cfg.SQPConfig(qp_backend="pcg")),
+    (cfg.CostConfig(), cfg.SQPConfig(qp_backend="admm")),
+    (cfg.CostConfig(), cfg.SQPConfig(qp_backend="riccati_pscan")),
     (cfg.CostConfig(formulation="reference"), cfg.SQPConfig()),
-])
+], ids=["pcg", "admm", "riccati_pscan", "reference"])
 def test_single_solve_selector_raises_outside_kernel_coverage(cost, sqp):
-    """The loops' single-lane solver is K1 (or its plain version), which
-    covers formulation 'gn' with the Riccati backend only."""
-    with pytest.raises(ValueError):
-        default_single_solve_fn(indy7(torch.float64), cost, sqp, DT)
+    """The loops' single-lane solver is K1 (or its plain version) inside
+    its coverage (formulation 'gn' with the Riccati backend).  Outside it,
+    formulation 'reference' gets the readable solver (``solvers.sqp.solve``,
+    held against the JAX solver in tests/test_torch_readable.py); the QP
+    backends the port lacks raise NotImplementedError."""
+    from indy7_mpc_tpu_torch.solvers import sqp as sqp_mod
+
+    model = indy7(torch.float64)
+    if sqp.qp_backend != "riccati":
+        with pytest.raises(NotImplementedError, match="item 5"):
+            default_single_solve_fn(model, cost, sqp, DT)
+        return
+    fn = default_single_solve_fn(model, cost, sqp, DT)
+    rng = np.random.default_rng(4)
+    xs = torch.as_tensor(np.r_[INIT_Q, np.zeros(6)])
+    goals = torch.as_tensor(rng.normal(size=(N, 3)) * 0.3)
+    X = torch.as_tensor(rng.normal(size=(N, 12)) * 0.05)
+    U = torch.as_tensor(rng.normal(size=(N - 1, 6)))
+    got = fn(xs, goals, X, U)
+    want = sqp_mod.solve(model, cost, sqp, DT, xs, goals, X, U)
+    for g, w in zip(got, want):
+        for a, b in zip(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,)):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert got.stats.iterations.shape == () and got.X.shape == (N, 12)
 
 
 def _close(port, jax_value, name):

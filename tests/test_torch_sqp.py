@@ -178,12 +178,29 @@ def test_sqp_solve_raises_outside_kernel_coverage(sm, cost, sqp):
         )
 
 
-def test_select_raises_outside_kernel_coverage():
-    with pytest.raises(ValueError):
-        default_batch_solve_fn(
-            indy7(torch.float64), COST, SQPConfig(qp_backend="pcg"), DT
-        )
-    with pytest.raises(ValueError):
-        default_batch_solve_fn(
-            indy7(torch.float64), CostConfig(formulation="reference"), SQP, DT
-        )
+@pytest.mark.parametrize("case", ["reference", "pcg", "admm", "riccati_pscan"])
+def test_select_raises_outside_kernel_coverage(case):
+    """Outside K1's coverage: formulation="reference" selects the readable
+    solver, which matches the TPU package's selection (its readable solver
+    on the CPU); the QP backends the port lacks raise, naming ROADMAP
+    item 5."""
+    if case != "reference":
+        with pytest.raises(NotImplementedError, match="item 5"):
+            default_batch_solve_fn(indy7(torch.float64), COST, SQPConfig(qp_backend=case), DT)
+        return
+    from indy7_mpc_tpu.solvers import select as jax_select
+
+    cost, sqp = CostConfig(formulation="reference"), SQPConfig(max_iters=1)
+    xs, goals, X, U, w = _problem(5)
+    want = jax.jit(jax_select.default_batch_solve_fn(
+        jax_indy7(dtype=jnp.float64), cost, sqp, DT))(xs, goals, X, U, w)
+    t = torch.as_tensor
+    before = sqp_solve.launches
+    got = default_batch_solve_fn(indy7(torch.float64), cost, sqp, DT)(
+        t(xs), t(goals), t(X), t(U), t(w))
+    assert sqp_solve.launches == before
+    np.testing.assert_array_equal(got.stats.alphas.numpy(), np.asarray(want.stats.alphas))
+    np.testing.assert_array_equal(got.stats.iterations.numpy(),
+                                  np.asarray(want.stats.iterations))
+    np.testing.assert_allclose(got.X.numpy(), np.asarray(want.X), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.U.numpy(), np.asarray(want.U), rtol=0, atol=ATOL)

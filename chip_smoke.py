@@ -67,7 +67,27 @@ Phases, each fatal on failure (exit code 1, no result line):
      unchanged) perturbed by PERTURBED_PLANT, run_sampled_mpc at phase 5's
      configuration for 500 ticks through K1 and K2 (each once a tick):
      finite, last-100 tracking under 0.2 m; then K2 with the MJCF plant's
-     constants against its plain version on the run's last state.
+     constants against its plain version on the run's last state;
+ 11. the readable solver's QP backends (ops/riccati_pscan.py, ops/pcg.py,
+     ops/admm.py) on the card, none of which launches K1 or K2: at phase
+     3's B=64/N=64 f32 inputs, 2 SQP iterations, each backend's default
+     settings, beside the readable Riccati solve: riccati_pscan's X and U
+     within phase 3's scaled 6e-3 on every lane whose alphas agree (at
+     most 2 flips); admm finite and every lane's merit below its start;
+     pcg finite, no lane's merit above its start, its CG counts in (0, 60]
+     on every live SQP iteration (60 CG iterations do not converge on
+     these QPs, so its merit against Riccati's is printed, not gated);
+     then pcg in f64 with a cap of 2,000 CG iterations, every lane's merit
+     at most 1.05 times the f64 Riccati lane's plus 1e-6; ms, device
+     kernels and host syncs of a call printed for each backend; each
+     backend in f64 at B=4/N=16 on the card and on the CPU (alphas and
+     inner iterations equal; X, U within 1e-9, pcg and admm within 1e-8
+     after scaling each lane by max(1, max |value|)); last, the GATO
+     method in the closed loop: run_sampled_mpc(fused=False) with
+     qp_backend="pcg" from phase 9's carry with its draws for 10 ticks,
+     its mean tracking error within 20% of phase 9's readable Riccati
+     tick over the same ticks (see PCG_LOOP_GATE), its ms a tick and the
+     winners' agreement printed.
 
 Each kernel's bound is the larger of its floating-point operations on
 the phase's inputs over 67 TFLOP/s and the bytes of its inputs and
@@ -83,7 +103,8 @@ fallback: a kernel that does not build or launch, or a horizon that does
 not fit K1's shared memory, fails its phase.
 
 The line before the last is the card's name and power limit, the one
-before it the kernels' JSON summary; the last line is
+before it the kernels' JSON summary (``launches_by_phase`` has phase 11
+as ``qp_backends``, with 0 launches of each); the last line is
 {"ok": true, "device": {...}}.
 """
 import json
@@ -98,6 +119,21 @@ F_TRUE0 = [-60.0, 20.0, -40.0, 0.0, 0.0, 0.0]
 UDP_TICKS, REALTIME_SCALE, UDP_PORTS = 300, 1, (7611, 7610)  # plant, controller
 P2G_N, P2G_ITERS, P2G_STEPS = 32, 3, 300
 READABLE_BUDGET_S, READABLE_MAX_TICKS, MAX_FLIPS = 40.0, 100, 2
+QP_BACKENDS = ("riccati", "riccati_pscan", "pcg", "admm")
+PCG_CONVERGED_ITERS, PCG_LOOP_TICKS = 2000, 10
+# The PCG loop's mean tracking error against the Riccati tick's over the
+# same 10 ticks.  That mean is set by the start's transient, not by the
+# solver (indy7_mpc_tpu_torch/qp_gates.py, on the card): capped at 1 CG
+# iteration a solve the loop reads +7.3% on this phase's draws, at the
+# default 60 it reads +12.8% there and +3.3 to +8.6% on four other sets
+# of draws.  20% passes that spread; a NaN or a diverging loop fails.
+PCG_LOOP_GATE = 0.2
+# f64 card vs CPU: the direct backends absolutely, as phase 9; the
+# iterative ones after scaling each lane by max(1, max |value|), at the SQP
+# bound of tests/test_torch_{pcg,admm}.py (CG stops at its cap unconverged,
+# and ADMM's H has a condition number near 1e13, so the two devices'
+# rounding reaches ~2e-9 scaled, as the CPU's against the TPU package's).
+F64_TOL = {"riccati": 1e-9, "riccati_pscan": 1e-9, "pcg": 1e-8, "admm": 1e-8}
 
 
 class SmokeFailure(Exception):
@@ -707,7 +743,9 @@ def phase_readable(dev):
     print(f"sampled_tick formulation='reference': 3 ticks on the readable solver, finite, "
           f"no kernel launch; warning: {records[0].getMessage() if records else None}",
           flush=True)
-    return f_counts, {"ticks": T, "readable_ms_per_tick": r_ms, "two_kernel_ms_per_tick": f_ms,
+    loop9 = {"trace": tr, "ticks": T, "ms_per_tick": r_ms, "carry0": carry0, "draws": draws,
+             "x0": x0, "ref": ref}
+    return f_counts, loop9, {"ticks": T, "readable_ms_per_tick": r_ms, "two_kernel_ms_per_tick": f_ms,
                       "readable_launches_per_tick": r_prof["kernel_launches_per_tick"],
                       "readable_device_ms_per_tick": r_prof["device_ms_per_tick"],
                       "readable_busy_share": r_prof["busy_share"],
@@ -777,6 +815,188 @@ def phase_mjcf_plant(dev):
     return launches
 
 
+def lane_merits(model, cost, cfg, arrs, res=None):
+    """Each lane's merit at the solve's result (``res``) or at its start:
+    the warm start with the initial state pinned."""
+    import torch
+
+    from indy7_mpc_tpu_torch.solvers import sqp as readable
+
+    xs, goals, X, U, w = arrs
+    if res is None:
+        X = torch.cat([xs[:, None], X[:, 1:]], 1)
+    else:
+        X, U = res.X, res.U
+    return readable.merit(model, cost, cfg.merit_mu, X, U, goals, xs, DT, w)
+
+
+def check_live_qp_iters(name, res, cap):
+    """``pcg_iters`` populated: in (0, cap] on every iteration a lane ran
+    while not done (its first ``iterations``), 0 after."""
+    import torch
+
+    its = res.stats.pcg_iters
+    check(its is not None and its.dtype == torch.int32, f"{name}: pcg_iters missing")
+    live = torch.arange(its.shape[1], device=its.device) < res.stats.iterations[:, None]
+    check(bool(((its > 0) & (its <= cap))[live].all()),
+          f"{name}: pcg_iters outside (0, {cap}] on a live iteration: {its.tolist()}")
+    check(bool((its[~live] == 0).all()), f"{name}: pcg_iters not 0 once a lane is done")
+    return its[live]
+
+
+def phase_qp_backends(dev, loop9):
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.config import (
+        PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig,
+    )
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.mpc import run_sampled_mpc
+    from indy7_mpc_tpu_torch.solvers import sqp as readable
+
+    cost = CostConfig()
+    model = indy7(torch.float32, dev)
+    args, w = measure.k1_inputs(dev, B, N)
+    bmajor = [args[0].T] + [a.permute(2, 0, 1) for a in args[1:]] + [w.T]
+    cfgs = {be: SQPConfig(max_iters=SQP_ITERS, qp_backend=be) for be in QP_BACKENDS}
+    reset_counts()
+
+    def solve(cfg, arrs, mdl):
+        return readable.batch_solve(mdl, cost, cfg, DT, *arrs[:4], wrench_world_batch=arrs[4])
+
+    # 1. Each backend in f32 at its defaults, costed, on phase 3's inputs.
+    out, res, merit = {}, {}, {}
+    start = lane_merits(model, cost, cfgs["riccati"], bmajor)
+    for be, cfg in cfgs.items():
+        costs, res[be] = measure.call_costs(lambda: solve(cfg, bmajor, model), reps=1)
+        r = res[be]
+        check(bool(torch.isfinite(r.X).all() and torch.isfinite(r.U).all()),
+              f"{be} f32 solve not finite")
+        merit[be] = lane_merits(model, cost, cfg, bmajor, r)
+        ratio = (merit[be] / merit["riccati"]).double()
+        out[be] = {**costs, "merit_ratio_max": ratio.max().item(),
+                   "merit_ratio_p50": ratio.median().item(),
+                   "lanes_below_start": int((merit[be] < start).sum())}
+        line = (f"{be} batch_solve B={B} N={N} f32: {costs['host_ms']:.1f} ms a call (host "
+                f"clock), {costs['event_ms']:.1f} ms (CUDA events), {costs['kernels']:g} device "
+                f"kernels, {costs['device_ms']:.2f} ms device time, {costs['syncs']} host syncs; "
+                f"merit / Riccati's max {ratio.max().item():.4f}, p50 "
+                f"{ratio.median().item():.4f}; {out[be]['lanes_below_start']} of {B} lanes "
+                "below their starting merit")
+        if r.stats.pcg_iters is not None:
+            its = check_live_qp_iters(be, r, cfg.pcg_max_iters if be == "pcg"
+                                      else cfg.admm_max_iters)
+            out[be]["qp_iters"] = {"min": int(its.min()), "p50": float(its.float().median()),
+                                   "max": int(its.max())}
+            line += (f"; {'CG' if be == 'pcg' else 'ADMM'} iterations a live SQP iteration "
+                     f"min {int(its.min())}, p50 {its.float().median().item():g}, max "
+                     f"{int(its.max())}")
+        print(line, flush=True)
+
+    ric, ps = res["riccati"], res["riccati_pscan"]
+    flips = np.nonzero((ric.stats.alphas != ps.stats.alphas).any(1).cpu().numpy())[0]
+    check(flips.size <= MAX_FLIPS, f"riccati_pscan vs riccati: {flips.size} lanes flip an alpha")
+    keep = torch.ones(B, dtype=torch.bool, device=dev)
+    keep[torch.as_tensor(flips, dtype=torch.long, device=dev)] = False
+    for a, b in ((ps.X, ric.X), (ps.U, ric.U)):
+        scale = b.abs().amax(dim=(1, 2)).clamp(min=1.0)
+        scaled = ((a - b).abs() / scale[:, None, None])[keep].max().item()
+        check(scaled <= 6e-3, f"riccati_pscan vs riccati: X/U scaled error {scaled:.3e}")
+    out["riccati_pscan"]["alpha_flips"] = int(flips.size)
+    # ADMM solves the QP (in f64): every lane improves.  PCG at its default
+    # 60 CG iterations does not converge on these QPs, so the line search
+    # may reject both steps of a lane: no lane may get worse.
+    check(bool((merit["admm"] < start).all()),
+          f"admm: lanes {torch.nonzero(merit['admm'] >= start).flatten().tolist()} did not get "
+          "below their starting merit")
+    check(bool((merit["pcg"] <= start).all()),
+          f"pcg: lanes {torch.nonzero(merit['pcg'] > start).flatten().tolist()} got worse")
+
+    # PCG solves the same QP: with CG run to convergence (float64, a cap of
+    # PCG_CONVERGED_ITERS) every lane's merit within the JAX test's 5% of
+    # the Riccati solve's.
+    m64, a64 = indy7(torch.float64, dev), [a.double() for a in bmajor]
+    pcg64 = SQPConfig(max_iters=SQP_ITERS, qp_backend="pcg", pcg_max_iters=PCG_CONVERGED_ITERS)
+    r64 = lane_merits(m64, cost, cfgs["riccati"], a64, solve(cfgs["riccati"], a64, m64))
+    p64 = solve(pcg64, a64, m64)
+    its64 = check_live_qp_iters("pcg f64", p64, PCG_CONVERGED_ITERS)
+    pm64 = lane_merits(m64, cost, pcg64, a64, p64)
+    worst = (pm64 / (1.05 * r64 + 1e-6)).max().item()
+    check(worst <= 1.0, f"pcg f64 (cap {PCG_CONVERGED_ITERS}): a lane's merit over 1.05x the "
+          f"Riccati lane's + 1e-6 (worst {worst:.4f} of the bound)")
+    out["pcg"]["f64_converged"] = {"cap": PCG_CONVERGED_ITERS, "merit_ratio_max":
+                                   (pm64 / r64).max().item(), "cg_iters_max": int(its64.max()),
+                                   "cg_iters_p50": float(its64.float().median())}
+    print(f"pcg f64, cap {PCG_CONVERGED_ITERS}: merit / Riccati's max "
+          f"{(pm64 / r64).max().item():.5f}; CG iterations a live SQP iteration p50 "
+          f"{its64.float().median().item():g}, max {int(its64.max())}", flush=True)
+
+    # 2. f64 on the card against the CPU, B=4, N=16.
+    rng = np.random.default_rng(17)
+    wq = rng.normal(size=(4, 6)) * 8
+    wq[:, 3:] = 0.0
+    host = [torch.as_tensor(rng.normal(size=sh) * sc) for sh, sc in (
+        ((4, 12), 0.05), ((4, 16, 3), 0.3), ((4, 16, 12), 0.05), ((4, 15, 6), 0.5))]
+    host = [host[0] + torch.as_tensor(INIT_Q + [0.0] * 6)] + host[1:] + [torch.as_tensor(wq)]
+    for be, cfg in cfgs.items():
+        g = solve(cfg, [a.to(dev) for a in host], m64)
+        c = solve(cfg, host, indy7(torch.float64))
+        check(torch.equal(g.stats.alphas.cpu(), c.stats.alphas),
+              f"{be} f64: alphas differ between the card and the CPU")
+        if c.stats.pcg_iters is not None:
+            check(torch.equal(g.stats.pcg_iters.cpu(), c.stats.pcg_iters),
+                  f"{be} f64: inner iterations differ between the card and the CPU")
+        d = max((a.cpu() - b).abs().max().item() for a, b in ((g.X, c.X), (g.U, c.U)))
+        tol = F64_TOL[be]
+        scaled = max(((a.cpu() - b).abs().amax((1, 2)) / b.abs().amax((1, 2)).clamp(min=1.0))
+                     .max().item() for a, b in ((g.X, c.X), (g.U, c.U)))
+        check((d if be.startswith("riccati") else scaled) <= tol,
+              f"{be} f64: card vs CPU differ by {d:.3e} ({scaled:.3e} scaled) > {tol:g}")
+        out[be]["f64_card_vs_cpu"] = {"max_abs": d, "scaled": scaled}
+    print("f64 B=4 N=16, card vs CPU max |X,U diff| (scaled by each lane's max(1, |value|)): "
+          + ", ".join(f"{be} {out[be]['f64_card_vs_cpu']['max_abs']:.3e} "
+                      f"({out[be]['f64_card_vs_cpu']['scaled']:.3e})" for be in cfgs), flush=True)
+
+    # 3. The GATO method in the closed loop: PCG's readable tick on phase
+    # 9's carry and draws, against phase 9's readable Riccati tick.
+    ticks = PCG_LOOP_TICKS
+    mcfg = MPCConfig(N=N, dt=DT)
+    scfg = SampleConfig(batch_size=B, f_ext_std=20.0, f_ext_resample_std=1.0)
+
+    def loop(sqp_cfg):
+        return run_sampled_mpc(model, cost, sqp_cfg, mcfg, scfg, loop9["x0"], loop9["ref"],
+                               ticks, F_TRUE0, None, plant_cfg=PERTURBED_PLANT,
+                               carry0=loop9["carry0"], draws=loop9["draws"][:ticks],
+                               fused=False)[1]
+
+    ric_trace = loop9["trace"] if loop9["ticks"] >= ticks else loop(cfgs["riccati"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp = loop(cfgs["pcg"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ticks * 1e3
+    for f, v in tp._asdict().items():
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"PCG loop: trace {f} not finite")
+    te_p = tp.tracking_error.double().mean().item()
+    te_r = ric_trace.tracking_error[:ticks].double().mean().item()
+    same = int((tp.best_idx == ric_trace.best_idx[:ticks]).sum())
+    print(f"PCG closed loop (fused=False, qp_backend='pcg') B={B} N={N} perturbed plant, "
+          f"{ticks} ticks: {ms:.1f} ms/tick (host clock); mean tracking error {te_p:.4f} m "
+          f"against the readable Riccati tick's {te_r:.4f} m; winners equal on {same} of "
+          f"{ticks} ticks", flush=True)
+    check(abs(te_p - te_r) <= PCG_LOOP_GATE * te_r, f"PCG loop mean tracking {te_p:.4f} m "
+          f"not within {PCG_LOOP_GATE:.0%} of the readable Riccati tick's {te_r:.4f} m")
+    out["pcg_loop"] = {"ticks": ticks, "ms_per_tick": ms, "tracking_pcg_m": te_p,
+                       "tracking_riccati_m": te_r, "winners_equal": same}
+
+    counts = read_counts()
+    check(all(n == 0 for n in counts.values()), f"QP backends launched kernels: {counts}")
+    return counts, out
+
+
 def main():
     try:
         import torch
@@ -808,14 +1028,27 @@ def main():
           f"dynamic shared memory at N={N} ({K1.shared_bytes(P2G_N)} at N={P2G_N}; "
           f"N <= {K1.MAX_N})", flush=True)
 
-    kernels = [phase_sqp(dev), phase_tick(dev)]
-    phases = {"run_sampled_mpc": phase_main_path(dev),
-              "runtime_in_process": phase_runtime_inprocess(dev),
-              "runtime_udp": phase_runtime_udp(dev)}
-    phases["run_mpc"], single_lane = phase_point_to_goal(dev)
-    phases["readable_vs_two_kernel"], readable = phase_readable(dev)
-    phases["mjcf_plant"] = phase_mjcf_plant(dev)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[phase {name}: {seconds[name]:.1f} s]", flush=True)
+        return out
+
+    kernels = [timed("sqp", phase_sqp, dev), timed("tick", phase_tick, dev)]
+    phases = {"run_sampled_mpc": timed("run_sampled_mpc", phase_main_path, dev),
+              "runtime_in_process": timed("runtime_in_process", phase_runtime_inprocess, dev),
+              "runtime_udp": timed("runtime_udp", phase_runtime_udp, dev)}
+    phases["run_mpc"], single_lane = timed("run_mpc", phase_point_to_goal, dev)
+    phases["readable_vs_two_kernel"], loop9, readable = timed(
+        "readable_vs_two_kernel", phase_readable, dev)
+    phases["mjcf_plant"] = timed("mjcf_plant", phase_mjcf_plant, dev)
+    phases["qp_backends"], qp = timed("qp_backends", phase_qp_backends, dev, loop9)
+    print("phase seconds: " + json.dumps(seconds), flush=True)
     print("readable: " + json.dumps(readable), flush=True)
+    print("qp_backends: " + json.dumps(qp), flush=True)
     for k in kernels:
         k["launches"] = phases["run_sampled_mpc"][k["name"]]
         k["launches_by_phase"] = {p: n[k["name"]] for p, n in phases.items()}

@@ -3,9 +3,8 @@ package's ``indy7_mpc_tpu/config.py``).
 
 Kept as a copy so that this package runs without the TPU package present;
 tests/test_torch_model.py pins every field and default to the original.
-SQPConfig leaves out the pcg/admm settings of the QP backends the port
-lacks (ROADMAP item 5).  The port's functions read these by attribute, so
-either package's config objects work with it.
+The port's functions read these by attribute, so either package's config
+objects work with it.
 """
 from __future__ import annotations
 
@@ -39,10 +38,12 @@ class CostConfig:
 class SQPConfig:
     """SQP outer loop: iteration cap, merit line search over ``num_alphas``
     halving alphas, step-norm exit, Levenberg rho backoff.  ``qp_backend``:
-    "riccati" is the only backend the port implements (K1 and the readable
-    solver); "pcg", "admm" and "riccati_pscan" raise NotImplementedError,
-    so the TPU package's pcg/admm settings are left out; its SQPConfig
-    objects work here all the same."""
+    "riccati" (the exact sweep: K1 and the readable solver), or, in the
+    readable solver only, "riccati_pscan" (the same QP, its backward pass
+    as a parallel scan over the horizon), "pcg" (the dual Schur-complement
+    PCG with a block-Jacobi preconditioner, the reference CUDA solver's
+    method) or "admm" (OSQP's ADMM on a block-tridiagonal Cholesky
+    factored once, the reference CPU path's method)."""
 
     max_iters: int = 2
     merit_mu: float = 10.0
@@ -52,6 +53,18 @@ class SQPConfig:
     rho_max: float = 1e2
     rho_factor: float = 4.0
     qp_backend: str = "riccati"
+    pcg_tol: float = 1e-7
+    pcg_max_iters: int = 60
+    # ADMM (OSQP's sigma and alpha; its penalty fixed at rho * 1e3, since a
+    # new penalty would need a new factorization).
+    admm_sigma: float = 1e-6
+    admm_rho: float = 1e3
+    admm_alpha: float = 1.6
+    admm_eps: float = 1e-6
+    admm_max_iters: int = 200
+    # Added to every Q block under "pcg": the Schur complement needs a
+    # positive definite H, and the GN position Hessians are rank-deficient.
+    pcg_primal_reg: float = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)

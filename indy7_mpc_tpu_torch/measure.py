@@ -2,7 +2,7 @@
 a long host-dispatch run.
 
 Usage: python3 -m indy7_mpc_tpu_torch.measure [--out PATH]
-           [--runtime [--stats-dir DIR] | --udp | --k2 [--baseline DIR] | --readable]
+           [--runtime [--stats-dir DIR] | --udp | --k2 [--baseline DIR] | --readable | --qp]
 
 Without ``--runtime`` it prints, and writes as JSON to ``--out``:
   * the card's name and power limit (nvidia-smi);
@@ -69,6 +69,15 @@ sweep and one line search's merit over 9 candidates; the consensus; the
 plant step), each by the host clock (mean of 3 calls after a warm-up) and
 under ``torch.profiler`` (one call: device time, kernel launches, busy
 share).
+
+With ``--qp`` it instead times the QP step alone, the readable solver's
+four backends (``riccati``, ``riccati_pscan``, ``pcg``, ``admm`` at their
+default settings) on the same random float32 blocks at B=64, N=64 (like
+tools/profile_pscan.py's): per call the host-clock ms and the CUDA-event
+ms from the first launch to the last (mean of 3 calls after a warm-up),
+the device kernels and device ms of one call (``torch.profiler``'s raw
+CUDA events), and the host syncs (``torch.cuda.set_sync_debug_mode``),
+with the CG and ADMM iteration counts.
 
 It checks nothing; ``chip_smoke.py`` is the correctness run.  Exits 1
 without a CUDA device.
@@ -329,6 +338,108 @@ def readable_section(dev, reps=3):
         print(f"readable {name}: {host_ms:.1f} ms (host clock), {prof['device_ms_per_tick']:.2f} "
               f"ms device time, {prof['kernel_launches_per_tick']:g} kernel launches, busy "
               f"{100 * prof['busy_share']:.1f}% under the profiler", flush=True)
+    return out
+
+
+def device_work(fn):
+    """The device kernels and copies of one call of ``fn``, and their device
+    ms, from ``torch.profiler``'s raw CUDA events (aggregating them with
+    ``key_averages`` takes over a minute at 77k events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return len(events), sum(e.duration_ns() for e in events) / 1e6
+
+
+def call_costs(fn, reps=3):
+    """One call of ``fn`` on the card, costed: host-clock ms and CUDA-event
+    ms from its first launch to its last, and its host syncs (each
+    synchronizing CUDA operation warns under ``set_sync_debug_mode``),
+    means over ``reps`` calls after a warm-up (no device sleep: the
+    readable layer reads the host inside a call); the device kernels and
+    device ms of one more call (:func:`device_work`).
+    Returns (dict, the warm-up call's result)."""
+    import warnings
+
+    out = fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    event_ms = start.elapsed_time(end) / reps
+    syncs = sum("synchronizing" in str(w.message) for w in caught) / reps
+    kernels, device_ms = device_work(fn)
+    return {"host_ms": host_ms, "event_ms": event_ms, "syncs": syncs, "kernels": kernels,
+            "device_ms": device_ms, "busy_share": device_ms / host_ms}, out
+
+
+def qp_blocks(dev, B, N, seed=0, dtype=torch.float32):
+    """Random well-posed QP blocks at B lanes and N knots, like
+    tools/profile_pscan.py's, with xs and rho; all on ``dev``."""
+    from .ops.kkt import QPBlocks
+
+    rng = np.random.default_rng(seed)
+    nx, nu = 12, 6
+    Qh = rng.normal(size=(B, N, nx, nx)) * 0.1
+    Rh = rng.normal(size=(B, N - 1, nu, nu)) * 0.1
+    arrays = (rng.normal(size=(B, N - 1, nx, nx)) * 0.1 + np.eye(nx),
+              rng.normal(size=(B, N - 1, nx, nu)) * 0.1,
+              rng.normal(size=(B, N - 1, nx)) * 0.01,
+              Qh @ Qh.swapaxes(-1, -2) + 0.1 * np.eye(nx),
+              rng.normal(size=(B, N, nx)) * 0.1,
+              Rh @ Rh.swapaxes(-1, -2) + 0.5 * np.eye(nu),
+              rng.normal(size=(B, N - 1, nu)) * 0.1)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return (QPBlocks(*map(t, arrays)), t(rng.normal(size=(B, nx)) * 0.1),
+            torch.full((B,), 1e-6, dtype=dtype, device=dev))
+
+
+def qp_section(dev, B=64, N=64):
+    """The QP step alone on each readable backend, same blocks."""
+    from .ops import admm, pcg, riccati, riccati_pscan
+
+    blocks, xs, rho = qp_blocks(dev, B, N)
+    sqp = SQPConfig()
+    steps = {
+        "riccati": lambda: riccati.solve(blocks, xs, rho),
+        "riccati_pscan": lambda: riccati_pscan.solve_pscan(blocks, xs, rho),
+        "pcg": lambda: pcg.solve(blocks, xs, rho, primal_reg=sqp.pcg_primal_reg,
+                                 tol=sqp.pcg_tol, max_iters=sqp.pcg_max_iters),
+        "admm": lambda: admm.solve(blocks, xs, rho, sigma=sqp.admm_sigma, rho_admm=sqp.admm_rho,
+                                   alpha=sqp.admm_alpha, eps_abs=sqp.admm_eps,
+                                   eps_rel=sqp.admm_eps, max_iters=sqp.admm_max_iters),
+    }
+    out = {}
+    for name, fn in steps.items():
+        cost, sol = call_costs(fn)
+        its = getattr(sol, "iterations", None)
+        if its is not None:
+            its = its.cpu().numpy()
+            cost["iterations"] = {"min": int(its.min()), "p50": float(np.median(its)),
+                                  "max": int(its.max())}
+        out[name] = cost
+        print(f"QP step {name} B={B} N={N} float32: {cost['event_ms']:.2f} ms (CUDA events), "
+              f"{cost['host_ms']:.2f} ms (host clock); {cost['kernels']:g} device kernels, "
+              f"{cost['device_ms']:.3f} ms device time, {cost['syncs']} host syncs a call"
+              + ("" if its is None else
+                 f"; iterations min {its.min()}, p50 {np.median(its):g}, max {its.max()}"),
+              flush=True)
     return out
 
 
@@ -622,6 +733,8 @@ def main(argv=None):
     ap.add_argument("--baseline", help="a checkout whose K2 K2's section times too, in turns")
     ap.add_argument("--readable", action="store_true",
                     help="take the readable tick apart instead")
+    ap.add_argument("--qp", action="store_true",
+                    help="time the QP step alone on each readable backend instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -642,6 +755,8 @@ def main(argv=None):
         result["k2"] = k2_section(args.baseline)
     elif args.readable:
         result["readable"] = readable_section(dev)
+    elif args.qp:
+        result["qp"] = qp_section(dev)
     else:
         print(f"K1: {K1.THREADS} threads a block by default, "
               f"{K1.shared_bytes(64)} bytes of shared memory at N=64 (N <= {K1.MAX_N})",

@@ -124,7 +124,9 @@ def run_mpc(
             U=sel(U_shift, carry.U),
             goal_idx=sel(goal_idx, carry.goal_idx),
             alive=alive,
-            state=SolverState(rho=sel(res.state.rho, carry.state.rho)),
+            # The whole solver state, ADMM's warm start included.
+            state=SolverState(*(None if n is None else sel(n, o)
+                                for n, o in zip(res.state, carry.state))),
         )
         out = (new_carry.x, sel(u, torch.zeros_like(u)), dist, goal_idx,
                res.stats.iterations)

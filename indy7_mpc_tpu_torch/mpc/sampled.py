@@ -235,16 +235,22 @@ def make_loop_tick(
     ``fused="auto"`` (default) selects the two-kernel ``FusedLoopTick``
     (mpc/fused_tick.py) when it covers the config: the production solver
     config (gn + riccati) and no injected ``batch_solve_fn``.
-    ``fused=True`` forces it (raising outside coverage); ``fused=False``
-    keeps the readable tick (mpc/readable_tick.py), the fused tick's
-    oracle, on ``batch_solve_fn`` or the readable solver.  Outside the
-    coverage the readable tick's default solver comes from
-    ``solvers.select`` (a warning on a card; unported QP backends raise).
+    ``fused=True`` forces it, raising ValueError outside the coverage or
+    with a ``batch_solve_fn`` (the two-kernel tick runs K1 and takes no
+    injected solver; the TPU package's tick drops one silently there);
+    ``fused=False`` keeps the readable tick (mpc/readable_tick.py), the
+    fused tick's oracle, on ``batch_solve_fn`` or the readable solver.
+    Outside the coverage the readable tick's default solver comes from
+    ``solvers.select`` (the readable solver, with a warning on a card).
     """
     from ..solvers.select import default_batch_solve_fn, kernel_supports
 
     ref = torch.as_tensor(ref_traj)
     covered = batch_solve_fn is None and kernel_supports(cost_cfg, sqp_cfg)
+    if fused is True and batch_solve_fn is not None:
+        raise ValueError("fused=True builds the two-kernel tick, which runs the SQP kernel "
+                         "(K1) and takes no injected batch_solve_fn; pass fused=False or "
+                         "'auto' to tick on the injected solver")
     if fused is True or (fused == "auto" and covered):
         from .fused_tick import make_fused_loop_tick
 

@@ -1,0 +1,40 @@
+"""The lane-batched form of ``jax.lax.while_loop`` under ``vmap``.
+
+Under ``vmap`` a while loop runs while any lane's condition holds; a lane
+whose condition fails keeps its state from then on, and its iteration
+count stops.  :func:`while_loop` does the same on tensors whose leading
+dims are the lanes, with a per-lane ``active`` mask.  Whether any lane is
+still active is a host read, so it is taken every :data:`CHECK_EVERY`
+iterations only; the iterations run past the last lane's exit are masked
+on every lane, so the result does not depend on the interval.
+"""
+from __future__ import annotations
+
+import torch
+
+#: Iterations between the host reads of "is any lane still active".
+CHECK_EVERY = 4
+
+
+def _lanes(mask, t):
+    return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
+
+
+def while_loop(cond, body, state, max_iters: int):
+    """Run ``state = body(state)`` on each lane while ``cond(state)`` holds
+    for it, at most ``max_iters`` times.
+
+    ``state`` is a tuple of tensors whose leading dims are the lanes;
+    ``cond(state)`` gives a bool tensor of the lane shape.  Returns the
+    final state and each lane's iteration count (int32).
+    """
+    active = cond(state)
+    iters = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
+    for it in range(max_iters):
+        if it % CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        new = body(state)
+        state = tuple(torch.where(_lanes(active, n), n, o) for n, o in zip(new, state))
+        iters = iters + active.to(torch.int32)
+        active = cond(state)
+    return state, iters

@@ -4,10 +4,10 @@ Kernel K1 covers the Gauss-Newton formulation with the Riccati backend:
 inside that coverage the default solvers are ``sqp_cuda.batch_solve`` and
 ``sqp_cuda.single_solve_fn``, whose wrapper launches the kernel for CUDA
 tensors and runs its plain version for CPU tensors.  Every other
-configuration (``formulation="reference"``) falls back to the readable
-solver (``solvers/sqp.py``) on any device, with a warning when the target
-device is a card.  The QP backends the port lacks (pcg, admm,
-riccati_pscan) raise ``NotImplementedError``.
+configuration (``formulation="reference"``, or the QP backends "pcg",
+"admm" and "riccati_pscan") falls back to the readable solver
+(``solvers/sqp.py``) on any device, with a warning when the target device
+is a card.  An unknown QP backend raises ``ValueError``.
 
 Every consumer of a batched solve (``mpc.sampled.sampled_tick``,
 ``make_loop_tick``, the runtime controller) resolves its default through

@@ -2,15 +2,18 @@
 ``indy7_mpc_tpu/solvers/sqp.py``).
 
 The reference's SQP outer loop, on any lane count at once: linearize
-(ops/kkt.py), solve the QP by the Riccati sweep (ops/riccati.py), merit
+(ops/kkt.py), solve the QP by the backend ``qp_backend`` names, merit
 line search over ``num_alphas`` halving alphas (mu = 10), step-norm exit,
 iteration cap, per-lane Levenberg rho raised on rejection.  Both cost
-formulations ("gn" and "reference").  It is the oracle of kernel K1 (its
-derivatives come from autodiff, not from K1's ``Dual`` code) and the
-solver for every configuration outside K1's coverage.
+formulations ("gn" and "reference") and every QP backend: the Riccati
+sweep (ops/riccati.py), its parallel-scan form (ops/riccati_pscan.py),
+the dual PCG (ops/pcg.py) and ADMM (ops/admm.py).  It is the oracle of
+kernel K1 (its derivatives come from autodiff, not from K1's ``Dual``
+code) and the solver for every configuration outside K1's coverage.
 
 Control flow is fixed-shape: a Python loop over ``max_iters`` with masked
-per-lane updates, no host reads.  ``stats.iterations`` counts the
+per-lane updates; the PCG and ADMM loops read the host at their exit
+checks (ops/while_loop.py).  ``stats.iterations`` counts the
 iterations a lane ran while not done, rejected ones included, as the TPU
 package's readable solver does (K1 counts accepted steps).
 """
@@ -22,13 +25,19 @@ import torch
 
 from ..config import CostConfig, SQPConfig
 from ..models.robot import RobotModel
-from ..ops import kkt, riccati
+from ..ops import admm, kkt, pcg, riccati, riccati_pscan
 
 
 class SolverState(NamedTuple):
-    """Per-lane solver state carried across solves (the Levenberg rho)."""
+    """Per-lane solver state carried across solves: the Levenberg rho and,
+    under ``qp_backend="admm"``, ADMM's primal iterate and constraint
+    multipliers (OSQP's warm start, which the reference keeps by reusing
+    one OSQP object across SQP iterations and ticks); ``None`` for the
+    other backends."""
 
     rho: torch.Tensor  # (*b,)
+    admm_z: Optional[torch.Tensor] = None  # (*b, N, nx+nu) primal iterate
+    admm_y: Optional[torch.Tensor] = None  # (*b, N, nx) constraint duals
 
     @staticmethod
     def init(cfg: SQPConfig, batch_shape=(), device=None):
@@ -44,6 +53,11 @@ class SQPStats(NamedTuple):
     iterations: torch.Tensor  # (*b,) iteration count; see each solver
     step_sizes: torch.Tensor  # (*b, max_iters) ||alpha * dz|| per iteration
     alphas: torch.Tensor      # (*b, max_iters) line-search alphas (0 = reject)
+    # (*b, max_iters) int32 inner-QP iterations per SQP iteration under the
+    # iterative backends, 0 once a lane is done: CG iterations under "pcg"
+    # (the reference's pcg_stats[i].pcg_iterations), ADMM iterations under
+    # "admm"; None under the direct backends.
+    pcg_iters: Optional[torch.Tensor] = None
 
 
 class SQPResult(NamedTuple):
@@ -53,19 +67,12 @@ class SQPResult(NamedTuple):
     stats: SQPStats
 
 
-#: QP backends of the TPU package that the port does not have yet.
-UNPORTED_QP_BACKENDS = ("pcg", "admm", "riccati_pscan")
+QP_BACKENDS = ("riccati", "riccati_pscan", "pcg", "admm")
 
 
 def require_qp_backend(sqp_cfg: SQPConfig) -> None:
-    """Raise NotImplementedError for a QP backend the port lacks."""
-    if sqp_cfg.qp_backend in UNPORTED_QP_BACKENDS:
-        raise NotImplementedError(
-            f"qp_backend={sqp_cfg.qp_backend!r} is not ported yet (ROADMAP "
-            "section 1, item 5: the PCG, ADMM and parallel-scan QP backends); "
-            "the port solves with qp_backend='riccati'"
-        )
-    if sqp_cfg.qp_backend != "riccati":
+    """Raise ValueError for an unknown QP backend."""
+    if sqp_cfg.qp_backend not in QP_BACKENDS:
         raise ValueError(f"unknown qp_backend {sqp_cfg.qp_backend!r}")
 
 
@@ -95,6 +102,8 @@ def solve(
     xs (*b, nx), goals (*b, N, 3), X (*b, N, nx), U (*b, N-1, nu),
     wrench_world (*b, 6) or None, ``state.rho`` (*b,); one lane is
     ``*b = ()``.  The model is moved to the inputs' device and dtype.
+    Under ``qp_backend="admm"`` the returned state carries ADMM's iterate:
+    pass it back to warm-start the next call, as the QPs of one call do.
     """
     require_qp_backend(sqp_cfg)
     batch, dtype, device = xs.shape[:-1], X.dtype, X.device
@@ -112,20 +121,44 @@ def solve(
     cand = cand.reshape((-1,) + (1,) * X.dim())
     done = torch.zeros(batch, dtype=torch.bool, device=device)
     iters = torch.zeros(batch, dtype=torch.int32, device=device)
-    step_log, alpha_log = [], []
+    step_log, alpha_log, qp_log = [], [], []
     gn = cost_cfg.formulation == "gn"
+    # ADMM's warm start carries across SQP iterations and calls (OSQP's
+    # object reuse); it is updated every iteration, done lanes included.
+    admm_z, admm_y = state.admm_z, state.admm_y
+
+    def qp_solve(blocks, x_init):
+        nonlocal admm_z, admm_y
+        if sqp_cfg.qp_backend == "pcg":
+            sol = pcg.solve(blocks, x_init, rho, primal_reg=sqp_cfg.pcg_primal_reg,
+                            tol=sqp_cfg.pcg_tol, max_iters=sqp_cfg.pcg_max_iters)
+            return sol.X, sol.U, sol.iterations
+        if sqp_cfg.qp_backend == "admm":
+            sol = admm.solve(
+                blocks, x_init, rho, sigma=sqp_cfg.admm_sigma, rho_admm=sqp_cfg.admm_rho,
+                alpha=sqp_cfg.admm_alpha, eps_abs=sqp_cfg.admm_eps, eps_rel=sqp_cfg.admm_eps,
+                max_iters=sqp_cfg.admm_max_iters, z0=admm_z, y0=admm_y,
+            )
+            admm_z, admm_y = sol.z, sol.y
+            return sol.X, sol.U, sol.iterations
+        if sqp_cfg.qp_backend == "riccati_pscan":
+            sol = riccati_pscan.solve_pscan(blocks, x_init, rho)
+        else:
+            sol = riccati.solve(blocks, x_init, rho)
+        return sol.X, sol.U, None
 
     for _ in range(sqp_cfg.max_iters):
         if gn:
             blocks = kkt.build_qp_gn(model, cost_cfg, X, U, goals, dt,
                                      wrench_world=wrench_world)
-            sol = riccati.solve(blocks, xs - X[..., 0, :], rho)
-            dX, dU = sol.X, sol.U
+            dX, dU, qp_iters = qp_solve(blocks, xs - X[..., 0, :])
         else:
             blocks = kkt.build_qp(model, cost_cfg, X, U, goals, dt,
                                   wrench_world=wrench_world)
-            sol = riccati.solve(blocks, xs, rho)
-            dX, dU = sol.X - X, sol.U - U
+            Xq, Uq, qp_iters = qp_solve(blocks, xs)
+            dX, dU = Xq - X, Uq - U
+        if qp_iters is not None:
+            qp_log.append(torch.where(done, 0, qp_iters).to(torch.int32))
 
         merits = merit(
             model, cost_cfg, sqp_cfg.merit_mu, X + cand * dX, U + cand * dU,
@@ -157,11 +190,12 @@ def solve(
     return SQPResult(
         X=X,
         U=U,
-        state=SolverState(rho=rho.to(state.rho.dtype)),
+        state=SolverState(rho=rho.to(state.rho.dtype), admm_z=admm_z, admm_y=admm_y),
         stats=SQPStats(
             iterations=iters,
             step_sizes=torch.stack(step_log, -1),
             alphas=torch.stack(alpha_log, -1),
+            pcg_iters=torch.stack(qp_log, -1) if qp_log else None,
         ),
     )
 

@@ -75,7 +75,7 @@ def single_solve_fn(
             X=res.X[0],
             U=res.U[0],
             state=SolverState(rho=res.state.rho[0].to(rho_dtype)),
-            stats=SQPStats(*(a[0] for a in res.stats)),
+            stats=SQPStats(*(None if a is None else a[0] for a in res.stats)),
         )
 
     return fn

@@ -545,6 +545,61 @@ def test_readable_f32_solve_matches_k1_full_width(cuda):
         assert ((kt - rt).abs() / scale[:, None, None])[~flips].max().item() <= 6e-3
 
 
+@pytest.mark.parametrize("backend", ["pcg", "admm", "riccati_pscan"])
+def test_qp_backend_solve_on_the_card_matches_cpu_f64(cuda, backend):
+    """The readable solver on each QP backend outside K1's coverage, in
+    float64 on the card and on the CPU: the same line-search choices and
+    inner-QP iteration counts, X and U after scaling each lane by max(1,
+    max |value|) to 1e-9 (riccati_pscan) or to the 1e-8 of the iterative
+    backends' SQP tests (CG stops at its cap unconverged; ADMM's H has a
+    condition number near 1e13).  No kernel of the package launches."""
+    rng = np.random.default_rng(22)
+    w = rng.normal(size=(B, 6)) * 8
+    w[:, 3:] = 0.0
+    host = [torch.as_tensor(rng.normal(size=shape) * scale) for shape, scale in (
+        ((B, 12), 0.05), ((B, N, 3), 0.3), ((B, N, 12), 0.05), ((B, N - 1, 6), 0.5))]
+    host.append(torch.as_tensor(w))
+    sqp = SQPConfig(max_iters=2, qp_backend=backend)
+    before = sqp_solve.launches
+    got = readable.batch_solve(indy7(torch.float64, cuda), COST, sqp, DT,
+                               *(a.to(cuda) for a in host[:4]), wrench_world_batch=host[4].to(cuda))
+    assert sqp_solve.launches == before
+    want = readable.batch_solve(indy7(torch.float64), COST, sqp, DT, *host[:4],
+                                wrench_world_batch=host[4])
+    np.testing.assert_array_equal(got.stats.alphas.cpu().numpy(), want.stats.alphas.numpy())
+    if backend == "riccati_pscan":
+        assert got.stats.pcg_iters is None
+    else:
+        np.testing.assert_array_equal(got.stats.pcg_iters.cpu().numpy(),
+                                      want.stats.pcg_iters.numpy())
+    for name in ("X", "U"):
+        g, c = getattr(got, name).cpu(), getattr(want, name)
+        scale = c.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1.0)
+        tol = 1e-9 if backend == "riccati_pscan" else 1e-8
+        assert ((g - c).abs() / scale).max().item() <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_riccati_pscan_on_the_card_matches_riccati(cuda, dtype):
+    """The parallel-scan Riccati against the sequential sweep on the card,
+    both sweeping in float64 (float32 upcast), on well-posed random blocks
+    at N=13 (not a power of two): X, U, K, kff to 1e-9 after scaling each
+    lane by max(1, max |value|) in float64, to float32 rounding in float32."""
+    from indy7_mpc_tpu_torch.measure import qp_blocks
+    from indy7_mpc_tpu_torch.ops import riccati, riccati_pscan
+
+    blocks, xs, _ = qp_blocks(cuda, 4, 13, seed=23, dtype=dtype)
+    rho = torch.tensor([1e-6, 1e-4, 1e-2, 1.0], dtype=dtype, device=cuda)
+    got = riccati_pscan.solve_pscan(blocks, xs, rho)
+    want = riccati.solve(blocks, xs, rho)
+    tol = 1e-9 if dtype == torch.float64 else 1e-6
+    for name, g, c in zip(got._fields, got, want):
+        assert g.dtype == dtype and g.device.type == "cuda"
+        dims = tuple(range(1, c.dim()))
+        scale = c.abs().amax(dim=dims, keepdim=True).clamp(min=1.0)
+        assert ((g - c).abs() / scale).max().item() <= tol, name
+
+
 @pytest.mark.parametrize("saturation", [False, True])
 def test_tick_kernel_mjcf_plant_matches_plain(cuda, saturation):
     """K2 with the MJCF plant's constants (perturbed): its +inf velocity

@@ -39,17 +39,17 @@ WRENCH = [5.0, 0.0, 15.0, 0.0, 0.0, 0.0]
 ], ids=["pcg", "admm", "riccati_pscan", "reference"])
 def test_single_solve_selector_raises_outside_kernel_coverage(cost, sqp):
     """The loops' single-lane solver is K1 (or its plain version) inside
-    its coverage (formulation 'gn' with the Riccati backend).  Outside it,
-    formulation 'reference' gets the readable solver (``solvers.sqp.solve``,
-    held against the JAX solver in tests/test_torch_readable.py); the QP
-    backends the port lacks raise NotImplementedError."""
+    its coverage (formulation 'gn' with the Riccati backend).  Outside it
+    (formulation 'reference', or the QP backends pcg, admm and
+    riccati_pscan) it is the readable solver: the same bits as
+    ``solvers.sqp.solve`` (held against the JAX solver in
+    tests/test_torch_readable.py), and for the QP backends also the JAX
+    selection's result (its readable solver on the CPU), to 1e-8 after
+    scaling by max(1, max |value|), the bound of the backends' own tests."""
+    from indy7_mpc_tpu.solvers import select as jax_select
     from indy7_mpc_tpu_torch.solvers import sqp as sqp_mod
 
     model = indy7(torch.float64)
-    if sqp.qp_backend != "riccati":
-        with pytest.raises(NotImplementedError, match="item 5"):
-            default_single_solve_fn(model, cost, sqp, DT)
-        return
     fn = default_single_solve_fn(model, cost, sqp, DT)
     rng = np.random.default_rng(4)
     xs = torch.as_tensor(np.r_[INIT_Q, np.zeros(6)])
@@ -60,8 +60,21 @@ def test_single_solve_selector_raises_outside_kernel_coverage(cost, sqp):
     want = sqp_mod.solve(model, cost, sqp, DT, xs, goals, X, U)
     for g, w in zip(got, want):
         for a, b in zip(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,)):
-            np.testing.assert_array_equal(a.numpy(), b.numpy())
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert got.stats.iterations.shape == () and got.X.shape == (N, 12)
+    if sqp.qp_backend == "riccati":
+        return
+    jfn = jax_select.default_single_solve_fn(jax_indy7(dtype=jnp.float64), cost, sqp, DT)
+    jres = jax.jit(jfn)(*(jnp.asarray(a.numpy()) for a in (xs, goals, X, U)))
+    np.testing.assert_array_equal(got.stats.alphas.numpy(), np.asarray(jres.stats.alphas))
+    if sqp.qp_backend in ("pcg", "admm"):
+        np.testing.assert_array_equal(got.stats.pcg_iters.numpy(),
+                                      np.asarray(jres.stats.pcg_iters))
+    for a, b in ((got.X, jres.X), (got.U, jres.U)):
+        b = np.asarray(b)
+        assert (np.abs(a.numpy() - b) / max(1.0, np.abs(b).max())).max() <= 1e-8
 
 
 def _close(port, jax_value, name):

@@ -9,7 +9,7 @@ package's, on the CPU.
   * the float32 readable solver against the port's plain K1 at the 3e-3
     of tests/test_lane_sqp.py;
   * ``solvers/select``'s fallback for formulation="reference" (and its
-    warning for a card), and the unported QP backends;
+    warning for a card) and for the QP backends outside K1's coverage;
   * ``sim/readable_plant.py`` and the readable consensus against the JAX
     plant and ``find_best_lane``, and the MJCF plant's infinite velocity
     limits.
@@ -158,13 +158,32 @@ def test_select_falls_back_to_readable_solver(jax_solvers, caplog):
 
 @pytest.mark.parametrize("backend", ["pcg", "admm", "riccati_pscan"])
 def test_unported_qp_backends_raise(backend):
+    """The QP backends the port once lacked run now: both selectors give
+    the readable solver on them, finite, with lane 0 of the batched solve
+    equal to the single-lane solve to 1e-9 (scaled by max(1, max |value|));
+    an unknown backend name raises ValueError in the selectors and the
+    solver.  Each backend against JAX: tests/test_torch_{pcg,admm,
+    riccati_pscan}.py."""
     sqp_cfg = cfg.SQPConfig(qp_backend=backend)
-    model, z = indy7(torch.float64), torch.zeros(12, dtype=torch.float64)
+    model = indy7(torch.float64)
+    xs, goals, X, U, w, _ = (torch.as_tensor(a) for a in _problem(6))
+    batched = select.default_batch_solve_fn(model, cfg.CostConfig(), sqp_cfg, DT)(
+        xs, goals, X, U, w)
+    single = select.default_single_solve_fn(model, cfg.CostConfig(), sqp_cfg, DT)(
+        xs[0], goals[0], X[0], U[0], wrench_world=w[0])
+    assert (batched.stats.pcg_iters is None) == (backend == "riccati_pscan")
+    for b, s in ((batched.X, single.X), (batched.U, single.U)):
+        assert bool(torch.isfinite(b).all())
+        assert ((b[0] - s).abs().max() / s.abs().max().clamp(min=1.0)).item() <= 1e-9
+    np.testing.assert_array_equal(batched.stats.alphas[0].numpy(), single.stats.alphas.numpy())
+
+    bogus = cfg.SQPConfig(qp_backend="cholesky")
+    z = torch.zeros(12, dtype=torch.float64)
     for make in (select.default_batch_solve_fn, select.default_single_solve_fn):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            make(model, cfg.CostConfig(), sqp_cfg, DT)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sqp.solve(model, cfg.CostConfig(), sqp_cfg, DT, z, torch.zeros(N, 3, dtype=z.dtype),
+        with pytest.raises(ValueError, match="unknown qp_backend"):
+            make(model, cfg.CostConfig(), bogus, DT)
+    with pytest.raises(ValueError, match="unknown qp_backend"):
+        sqp.solve(model, cfg.CostConfig(), bogus, DT, z, torch.zeros(N, 3, dtype=z.dtype),
                   torch.zeros(N, 12, dtype=z.dtype), torch.zeros(N - 1, 6, dtype=z.dtype))
 
 

@@ -133,6 +133,9 @@ def test_make_loop_tick_selects_the_tick():
     assert isinstance(port_make_loop_tick(*ref_args), ReadableLoopTick)
     with pytest.raises(ValueError):
         port_make_loop_tick(*ref_args, fused=True)
+    # The two-kernel tick runs K1: an injected solver is refused, not dropped.
+    with pytest.raises(ValueError, match="no injected batch_solve_fn"):
+        port_make_loop_tick(*args, fused=True, batch_solve_fn=lambda *a: None)
 
 
 # ---------------------------------------------------------------------------

@@ -180,17 +180,21 @@ def test_sqp_solve_raises_outside_kernel_coverage(sm, cost, sqp):
 
 @pytest.mark.parametrize("case", ["reference", "pcg", "admm", "riccati_pscan"])
 def test_select_raises_outside_kernel_coverage(case):
-    """Outside K1's coverage: formulation="reference" selects the readable
-    solver, which matches the TPU package's selection (its readable solver
-    on the CPU); the QP backends the port lacks raise, naming ROADMAP
-    item 5."""
-    if case != "reference":
-        with pytest.raises(NotImplementedError, match="item 5"):
-            default_batch_solve_fn(indy7(torch.float64), COST, SQPConfig(qp_backend=case), DT)
-        return
+    """Outside K1's coverage (formulation="reference", or the QP backends
+    pcg, admm and riccati_pscan) the port selects the readable solver, the
+    same bits as ``solvers/sqp.batch_solve``, which matches the TPU
+    package's selection (its readable solver on the CPU): discrete choices
+    exactly; X and U to 1e-9 under "reference", and under the QP backends
+    to 1e-8 after scaling each lane by max(1, max |value|), the bound of
+    the backends' own tests (PCG runs to its iteration cap on these QPs,
+    ADMM factors H with a condition number near rho_admm / sigma = 1e9)."""
     from indy7_mpc_tpu.solvers import select as jax_select
+    from indy7_mpc_tpu_torch.solvers import sqp as readable
 
-    cost, sqp = CostConfig(formulation="reference"), SQPConfig(max_iters=1)
+    if case == "reference":
+        cost, sqp = CostConfig(formulation="reference"), SQPConfig(max_iters=1)
+    else:
+        cost, sqp = COST, SQPConfig(max_iters=1, qp_backend=case)
     xs, goals, X, U, w = _problem(5)
     want = jax.jit(jax_select.default_batch_solve_fn(
         jax_indy7(dtype=jnp.float64), cost, sqp, DT))(xs, goals, X, U, w)
@@ -199,8 +203,22 @@ def test_select_raises_outside_kernel_coverage(case):
     got = default_batch_solve_fn(indy7(torch.float64), cost, sqp, DT)(
         t(xs), t(goals), t(X), t(U), t(w))
     assert sqp_solve.launches == before
+    same = readable.batch_solve(indy7(torch.float64), cost, sqp, DT, t(xs), t(goals), t(X),
+                                t(U), wrench_world_batch=t(w))
+    for a, b in ((got.X, same.X), (got.U, same.U), (got.stats.alphas, same.stats.alphas)):
+        assert torch.equal(a, b)
     np.testing.assert_array_equal(got.stats.alphas.numpy(), np.asarray(want.stats.alphas))
     np.testing.assert_array_equal(got.stats.iterations.numpy(),
                                   np.asarray(want.stats.iterations))
-    np.testing.assert_allclose(got.X.numpy(), np.asarray(want.X), rtol=0, atol=ATOL)
-    np.testing.assert_allclose(got.U.numpy(), np.asarray(want.U), rtol=0, atol=ATOL)
+    if case in ("pcg", "admm"):
+        np.testing.assert_array_equal(got.stats.pcg_iters.numpy(),
+                                      np.asarray(want.stats.pcg_iters))
+    else:
+        assert got.stats.pcg_iters is None and want.stats.pcg_iters is None
+    for g, wv in ((got.X, want.X), (got.U, want.U)):
+        wv = np.asarray(wv)
+        if case == "reference":
+            np.testing.assert_allclose(g.numpy(), wv, rtol=0, atol=ATOL)
+        else:
+            scale = np.maximum(1.0, np.abs(wv).max(axis=(1, 2), keepdims=True))
+            assert (np.abs(g.numpy() - wv) / scale).max() <= 1e-8

@@ -87,7 +87,34 @@ Phases, each fatal on failure (exit code 1, no result line):
      qp_backend="pcg" from phase 9's carry with its draws for 10 ticks,
      its mean tracking error within 20% of phase 9's readable Riccati
      tick over the same ticks (see PCG_LOOP_GATE), its ms a tick and the
-     winners' agreement printed.
+     winners' agreement printed;
+ 12. the lane-sharded closed loop (indy7_mpc_tpu_torch/parallel/): 2 ranks,
+     each a spawned process on cuda:0, over gloo (NCCL refuses two ranks
+     of one group on one device); each rank runs K1 once a tick on its
+     block, K2 on its block as the consensus and K2 at B=1 as the plant
+     step; the consensus is two all-reduces.  (c) make_sharded_batch_solve
+     at phase 3's B=64/N=64 inputs against the single-process K1 and K1's
+     plain version at phase 3's gates (bits against K1 printed);
+     (a) make_sharded_sampled_loop at the bench's configuration (B=256,
+     N=64, 2 SQP iterations, perturbed plant, fig-8) for 200 ticks against
+     run_sampled_mpc from the same seed in this process: the winner equal
+     on every tick, u and the tracking error within the scaled 6e-3
+     (same bits printed), both ranks' traces equal bit for bit, K1 200 and
+     K2 400 times on each rank with 128 lanes a block; (b) B=32,768
+     (16,384 lanes a rank) with tests/test_sharding.py's 32k sampling and
+     true wrench for 5 ticks: finite, winners in [0, B), each block
+     (16,384, 6) on every tick, max |f_batch| under 60 N.  After each of
+     (a) and (b), every rank holds the next tick's K1 and K2 consensus
+     calls on its block against their plain versions: K1 on all 128 lanes
+     and on 256 lanes spread over the 16,384 at phase 3's gates, K2 on
+     every lane at phase 4's with the winner equal (at 16,384 lanes K2
+     takes its thread-per-lane path, which no earlier phase runs without
+     the plant).  Printed: ms a
+     tick of (a) and (b) by CUDA events on each rank and by the host
+     clock (the first chunk left out), K1 alone at 128 and 16,384 lanes
+     and K2 alone as the consensus at those widths and as the B=1 plant
+     step (on the next tick's arguments) with both ranks on the card, and
+     the consensus collectives alone (us a tick and their bytes).
 
 Each kernel's bound is the larger of its floating-point operations on
 the phase's inputs over 67 TFLOP/s and the bytes of its inputs and
@@ -104,8 +131,9 @@ not fit K1's shared memory, fails its phase.
 
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON summary (``launches_by_phase`` has phase 11
-as ``qp_backends``, with 0 launches of each); the last line is
-{"ok": true, "device": {...}}.
+as ``qp_backends``, with 0 launches of each, and phase 12 as
+``sharded``, the launches of (a) and (b) summed over the ranks); the
+last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -134,6 +162,15 @@ PCG_LOOP_GATE = 0.2
 # and ADMM's H has a condition number near 1e13, so the two devices'
 # rounding reaches ~2e-9 scaled, as the CPU's against the TPU package's).
 F64_TOL = {"riccati": 1e-9, "riccati_pscan": 1e-9, "pcg": 1e-8, "admm": 1e-8}
+# Phase 12: the lane-sharded loop on ranks that share the card over gloo
+# (NCCL refuses two ranks of one group on one device).  (a) the bench's
+# configuration, (b) BASELINE.json config 5's B with the sampling and true
+# wrench of tests/test_sharding.py's 32k sweep (its bound on |f_batch|).
+SHARDED_RANKS, SHARDED_B, SHARDED_TICKS, SHARDED_CHUNK, SHARDED_SEED = 2, 256, 200, 10, 42
+SWEEP_B, SWEEP_TICKS, SWEEP_F_MAX = 32768, 5, 60.0
+SWEEP_K1_LANES = 256  # of a rank's 16,384, held against K1's plain version
+SWEEP_SAMPLE = {"f_ext_std": 10.0, "f_ext_resample_std": 0.5}
+SWEEP_F_TRUE = [8.0, 0.0, -12.0, 0.0, 0.0, 0.0]
 
 
 class SmokeFailure(Exception):
@@ -188,20 +225,8 @@ def phase_sqp(dev):
     sm = LR.static_model(indy7(torch.float32, dev))
     args, w = measure.k1_inputs(dev, B, N)
     kw = dict(wrench=w)
-    k = K1.sqp_solve(sm, cost, sqp, DT, *args, **kw)
-    p = solve_lane_major(sm, cost, sqp, DT, *args, **kw)
-    torch.cuda.synchronize()
-    k_alpha, p_alpha = k[3].cpu().numpy(), p[3].cpu().numpy()
-    bad = np.nonzero((k_alpha != p_alpha).any(axis=0))[0]
-    check(bad.size == 0, f"K1 alphas differ on lanes {bad.tolist()}: "
-          f"kernel {k_alpha[:, bad].tolist()} plain {p_alpha[:, bad].tolist()}")
-    err = 0.0
-    for a, b in ((k[0], p[0]), (k[1], p[1])):
-        check(bool(torch.isfinite(a).all()), "K1 output not finite")
-        scale = b.abs().amax(dim=(0, 1)).clamp(min=1.0)
-        scaled = ((a - b).abs() / scale).max().item()
-        check(scaled <= 6e-3, f"K1 X/U scaled error {scaled:.3e} > 6e-3")
-        err = max(err, (a - b).abs().max().item())
+    err = check_k1_call("K1", K1.sqp_solve(sm, cost, sqp, DT, *args, **kw),
+                        solve_lane_major(sm, cost, sqp, DT, *args, **kw))
     ms = cuda_ms(lambda: K1.sqp_solve(sm, cost, sqp, DT, *args, **kw), 100)
     stage_ms = [cuda_ms(lambda: K1.sqp_solve(sm, cost, sqp, DT, *args, **kw, stages=st), 100)
                 for st in (1, 2, 3)] + [ms]
@@ -221,6 +246,30 @@ def phase_sqp(dev):
             "bound_by": bound_by, "library_ms": None, "threads": K1.THREADS,
             "smem_bytes": K1.shared_bytes(N),
             "stage_ms": stage_ms}
+
+
+def check_k1_call(label, k, p):
+    """K1's outputs ``k`` against its plain version's ``p`` on the same
+    inputs (``sqp_solve``'s lane-major (X, U, rho, alphas, ...)) at phase
+    3's gates: the line-search alphas equal on every lane, X and U finite
+    and within 6e-3 after scaling each lane by max(1, max |value|).
+    Returns the max abs error."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    k_alpha, p_alpha = k[3].cpu().numpy(), p[3].cpu().numpy()
+    bad = np.nonzero((k_alpha != p_alpha).any(axis=0))[0]
+    check(bad.size == 0, f"{label} alphas differ on lanes {bad.tolist()}: "
+          f"kernel {k_alpha[:, bad].tolist()} plain {p_alpha[:, bad].tolist()}")
+    err = 0.0
+    for a, b in ((k[0], p[0]), (k[1], p[1])):
+        check(bool(torch.isfinite(a).all()), f"{label} output not finite")
+        scale = b.abs().amax(dim=(0, 1)).clamp(min=1.0)
+        scaled = ((a - b).abs() / scale).max().item()
+        check(scaled <= 6e-3, f"{label} X/U scaled error {scaled:.3e} > 6e-3")
+        err = max(err, (a - b).abs().max().item())
+    return err
 
 
 def phase_tick(dev):
@@ -997,6 +1046,306 @@ def phase_qp_backends(dev, loop9):
     return counts, out
 
 
+def check_block_kernels(label, model, cost, sqp, carry, ref, k1_lanes):
+    """The next tick's K1 and K2 calls on this rank's block, from a sharded
+    loop's last carry, against their plain versions: K1 on ``k1_lanes``
+    lanes spread over the block (its lanes are independent) at phase 3's
+    gates, and K2 as the block's consensus (its plant step skipped) on
+    every lane at phase 4's, the winner equal.  Returns the max abs errors
+    of K1 and K2 with K2's winner in the block, and K2's arguments."""
+    import torch
+
+    from indy7_mpc_tpu_torch.mpc.fused_tick import (
+        broadcast_solve, consensus_args, reference_window,
+    )
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
+
+    smc = LR.static_model(model)
+    x, fb_T = carry.x, carry.f_batch.T.contiguous()
+    goals = reference_window(torch.as_tensor(ref, dtype=torch.float32, device=x.device),
+                             carry.ref_offset, N)
+    k = broadcast_solve(smc, cost, sqp, DT, x, goals, carry.X_best, carry.U_best, fb_T)
+    sel = torch.linspace(0, fb_T.shape[1] - 1, k1_lanes, device=x.device).round().long()
+    X0 = carry.X_best.clone()
+    X0[0] = x
+    lanes = lambda t: t[..., None].expand(t.shape + (k1_lanes,)).contiguous()
+    p = solve_lane_major(smc, cost, sqp, DT, lanes(x), lanes(goals), lanes(X0),
+                         lanes(carry.U_best), wrench=fb_T.index_select(1, sel))
+    k1_err = check_k1_call(f"{label}: K1 at {fb_T.shape[1]} lanes", [
+        None if t is None else t.index_select(-1, sel) for t in (k[0], k[1], None, k[3])], p)
+    k2_args = consensus_args(x, carry.x_last, carry.u_last, fb_T, k[1][0])
+    best, k2_err = check_k2_call(f"{label}: K2's consensus at {fb_T.shape[1]} lanes", smc, smc,
+                                 None, k2_args, plant=False)
+    return {"k1_err": k1_err, "k2_err": k2_err, "k2_best": best}, k2_args
+
+
+def sharded_rank(mesh):
+    """Phase 12 on one rank (a spawned process on the shared card): (c) the
+    sharded batch solve, (a) the bench's loop, (b) the 32k sweep, then K1
+    alone at both block widths and the consensus collectives alone.  The
+    launch counts are set to 0 just before each loop and read just
+    after."""
+    import torch
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.config import (
+        PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig,
+    )
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.mpc import init_loop_carry
+    from indy7_mpc_tpu_torch.multihost_bench import time_consensus
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+    from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import tick_epilogue
+    from indy7_mpc_tpu_torch.parallel import (
+        make_sharded_batch_solve, make_sharded_sampled_loop, shard_lanes,
+    )
+    from indy7_mpc_tpu_torch.sim.kernel_plant import kernel_plant_step
+    from indy7_mpc_tpu_torch.sim.plant import perturb_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    cost, sqp = CostConfig(), SQPConfig(max_iters=SQP_ITERS)
+    model = indy7(torch.float32, dev)
+    np_ = lambda t: t.detach().cpu().numpy()
+    out = {"rank": mesh.rank, "device": str(dev)}
+
+    # (c) The batch solve at phase 3's inputs, B-major, over the ranks.
+    args, w = measure.k1_inputs(dev, B, N)
+    local = shard_lanes(mesh, [args[0].T] + [a.permute(2, 0, 1) for a in args[1:]] + [w.T])
+    res = make_sharded_batch_solve(model, cost, sqp, DT, mesh, backend="kernel")(*local)
+    out["solve"] = {"lanes": local[0].shape[0], "X": np_(mesh.gather(res.X)),
+                    "U": np_(mesh.gather(res.U)), "alphas": np_(mesh.gather(res.stats.alphas))}
+
+    k2_calls, plant_calls = [], []  # the block's consensus, the B=1 plant step
+
+    def loop_run(lanes, ticks, chunk, sample, f_true, k1_lanes):
+        mcfg, scfg = MPCConfig(N=N, dt=DT), SampleConfig(batch_size=lanes, **sample)
+        gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED)
+        loop, layout = make_sharded_sampled_loop(
+            model, cost, sqp, mcfg, scfg, mesh, fig8_reference(), chunk, backend="kernel",
+            plant_cfg=PERTURBED_PLANT, generator=gen)
+        carry = shard_lanes(mesh, init_loop_carry(model, mcfg, scfg, initial_state(dev), f_true,
+                                                  gen), layout)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        traces, blocks, f_max = [], [], []
+        reset_counts()
+        torch.cuda.synchronize()
+        for i in range(ticks // chunk):
+            if i == 1:  # the first chunk (first launches in this process) is not timed
+                torch.cuda.synchronize()
+                start.record()
+                t0 = time.perf_counter()
+            carry, trace = loop(carry)
+            traces.append(trace)
+            blocks.append(tuple(carry.f_batch.shape))
+            f_max.append(carry.f_batch.abs().max())
+        end.record()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        launches = read_counts()
+        timed = ticks - chunk
+        trace = {f: np_(torch.cat([getattr(t, f) for t in traces])) for f in traces[0]._fields}
+        checked, k2_args = check_block_kernels(f"B={lanes} rank {mesh.rank}", model, cost, sqp,
+                                               carry, fig8_reference(), k1_lanes)
+        k2_calls.append((lanes // mesh.size, k2_args))
+        plant_calls.append((carry.x, carry.u_last, carry.f_true))
+        return {"trace": trace, "launches": launches, "blocks": blocks, "checked": checked,
+                "f_max": [float(v) for v in f_max],
+                "carry": {f: np_(v) for f, v in carry._asdict().items() if f != "f_batch"},
+                "event_ms_per_tick": start.elapsed_time(end) / timed,
+                "host_ms_per_tick": host * 1e3 / timed}
+
+    # (a) The bench's configuration; (b) the 32k sweep.
+    out["loop"] = loop_run(SHARDED_B, SHARDED_TICKS, SHARDED_CHUNK,
+                           {"f_ext_std": 20.0, "f_ext_resample_std": 1.0}, F_TRUE0,
+                           SHARDED_B // mesh.size)
+    out["sweep"] = loop_run(SWEEP_B, SWEEP_TICKS, 1, SWEEP_SAMPLE, SWEEP_F_TRUE, SWEEP_K1_LANES)
+
+    # K1 alone at each block width, both ranks on the card at once.
+    sm = LR.static_model(model)
+    out["k1_ms"] = {}
+    for lanes, reps in ((SHARDED_B // mesh.size, 50), (SWEEP_B // mesh.size, 5)):
+        k_args, k_w = measure.k1_inputs(dev, lanes, N)
+        mesh.all_reduce(torch.zeros(1, device=dev))  # start together
+        out["k1_ms"][lanes] = cuda_ms(lambda: sqp_solve(sm, cost, sqp, DT, *k_args, wrench=k_w),
+                                      reps)
+    # K2 alone in its two calls of the loop, on the arguments of (a)'s and
+    # (b)'s next tick: the block's consensus and the B=1 plant step.
+    out["k2_ms"] = {}
+    for lanes, args in k2_calls:
+        mesh.all_reduce(torch.zeros(1, device=dev))
+        out["k2_ms"][lanes] = cuda_ms(
+            lambda: tick_epilogue(sm, sm, None, DT, *args, plant=False), 20)
+    smp = LR.static_model(perturb_model(model, PERTURBED_PLANT))
+    noise = PERTURBED_PLANT.torque_noise_std * torch.ones((PERTURBED_PLANT.substeps, 6),
+                                                          device=dev)
+    x, u, f_true = plant_calls[0]
+    mesh.all_reduce(torch.zeros(1, device=dev))
+    out["k2_ms"][1] = cuda_ms(
+        lambda: kernel_plant_step(sm, smp, PERTURBED_PLANT, DT, x, u, f_true, noise), 50)
+    out["consensus_us"], out["consensus_bytes"] = time_consensus(mesh, SHARDED_B, N)
+    return out
+
+
+def phase_sharded(dev):
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.config import (
+        PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig,
+    )
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.mpc import run_sampled_mpc
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
+    from indy7_mpc_tpu_torch.parallel._worker import spawn
+    from indy7_mpc_tpu_torch.roofline import bound_ms, k1_work, k2_work
+    from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
+
+    R = SHARDED_RANKS
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_rank, R, device=str(dev), backend="gloo", timeout=600)
+    print(f"sharded: {R} ranks on {dev} over gloo ran in {time.perf_counter() - t0:.1f} s "
+          "(process start included)", flush=True)
+    cost, sqp = CostConfig(), SQPConfig(max_iters=SQP_ITERS)
+    model = indy7(torch.float32, dev)
+
+    def scaled(a, b):
+        return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+    # (c) Against the single-process K1 and the plain version, phase 3's gates.
+    args, w = measure.k1_inputs(dev, B, N)
+    sm = LR.static_model(model)
+    single = [t.permute(2, 0, 1).cpu().numpy() for t in K1.sqp_solve(sm, cost, sqp, DT, *args,
+                                                                     wrench=w)[:2]]
+    plain = solve_lane_major(sm, cost, sqp, DT, *args, wrench=w)
+    plain_alphas = plain[3].T.cpu().numpy()
+    plain = [t.permute(2, 0, 1).cpu().numpy() for t in plain[:2]]
+    for r in ranks:
+        s = r["solve"]
+        check(s["lanes"] == B // R, f"rank {r['rank']}: {s['lanes']} lanes, want {B // R}")
+        check(np.array_equal(s["alphas"], plain_alphas),
+              f"rank {r['rank']}: sharded solve's alphas differ from the plain version's")
+        for name, ref in (("K1", single), ("plain", plain)):
+            for got, want in zip((s["X"], s["U"]), ref):
+                lane_scale = np.maximum(np.abs(want).max(axis=(1, 2)), 1.0)[:, None, None]
+                err = float((np.abs(got - want) / lane_scale).max())
+                check(err <= 6e-3, f"sharded solve vs {name}: X/U scaled error {err:.3e} > 6e-3")
+    same_bits = all(np.array_equal(r["solve"][k], v) for r in ranks
+                    for k, v in zip(("X", "U"), single))
+    print(f"sharded batch solve B={B} N={N} over {R} ranks ({B // R} lanes each): alphas equal "
+          f"to the plain version's on all lanes; the same bits as the single-process K1: "
+          f"{same_bits}", flush=True)
+
+    # (a) Against run_sampled_mpc from the same seed, in this process.
+    gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED)
+    _, tr = run_sampled_mpc(
+        model, cost, sqp, MPCConfig(N=N, dt=DT),
+        SampleConfig(batch_size=SHARDED_B, f_ext_std=20.0, f_ext_resample_std=1.0),
+        initial_state(dev), fig8_reference(), SHARDED_TICKS, F_TRUE0, gen,
+        plant_cfg=PERTURBED_PLANT)
+    single = {f: v.cpu().numpy() for f, v in tr._asdict().items()}
+    a0 = ranks[0]["loop"]
+    for r in ranks:
+        a = r["loop"]
+        want = {"sqp_solve": SHARDED_TICKS, "tick_epilogue": 2 * SHARDED_TICKS}
+        check(a["launches"] == want, f"rank {r['rank']}: launches {a['launches']} in "
+              f"{SHARDED_TICKS} ticks, want {want} (K2: the block's consensus, the plant step)")
+        check(all(b == (SHARDED_B // R, 6) for b in a["blocks"]),
+              f"rank {r['rank']}: f_batch blocks {set(a['blocks'])}, want {(SHARDED_B // R, 6)}")
+        for f, v in a["trace"].items():
+            check(np.array_equal(v, a0["trace"][f], equal_nan=True),
+                  f"rank {r['rank']}'s trace {f} differs from rank 0's")
+            if v.dtype.kind == "f":
+                check(bool(np.isfinite(v).all()), f"sharded loop: trace {f} not finite")
+    bad = np.nonzero(a0["trace"]["best_idx"] != single["best_idx"])[0]
+    check(bad.size == 0, f"sharded loop: winners differ from run_sampled_mpc on ticks "
+          f"{bad[:10].tolist()}")
+    du = scaled(a0["trace"]["u"], single["u"])
+    dte = scaled(a0["trace"]["tracking_error"], single["tracking_error"])
+    check(du <= 6e-3 and dte <= 6e-3, f"sharded loop vs run_sampled_mpc: u scaled diff "
+          f"{du:.3e}, tracking error {dte:.3e} (gate 6e-3)")
+    bits = {f: bool(np.array_equal(a0["trace"][f], single[f])) for f in ("u", "tracking_error",
+                                                                         "x", "f_est")}
+    print(f"sharded loop B={SHARDED_B} N={N} perturbed plant, {SHARDED_TICKS} ticks over {R} "
+          f"ranks: winners equal to run_sampled_mpc's on all ticks; u scaled diff {du:.3e}, "
+          f"tracking error {dte:.3e}; the same bits: {bits}; ranks' traces equal; ms a tick "
+          + ", ".join(f"rank {r['rank']} {r['loop']['event_ms_per_tick']:.4f} (CUDA events) "
+                      f"{r['loop']['host_ms_per_tick']:.4f} (host)" for r in ranks)
+          + f"; tracking mean {single['tracking_error'].astype(np.float64).mean():.4f} m",
+          flush=True)
+
+    # (b) The 32k sweep.
+    for r in ranks:
+        b = r["sweep"]
+        want = {"sqp_solve": SWEEP_TICKS, "tick_epilogue": 2 * SWEEP_TICKS}
+        check(b["launches"] == want, f"32k sweep rank {r['rank']}: launches {b['launches']}, "
+              f"want {want}")
+        check(all(blk == (SWEEP_B // R, 6) for blk in b["blocks"]),
+              f"32k sweep rank {r['rank']}: f_batch blocks {set(b['blocks'])}")
+        for f, v in b["trace"].items():
+            if v.dtype.kind == "f":
+                check(bool(np.isfinite(v).all()), f"32k sweep: trace {f} not finite")
+        best = b["trace"]["best_idx"]
+        check(bool(((best >= 0) & (best < SWEEP_B)).all()), f"32k sweep: winners {best}")
+        check(max(b["f_max"]) < SWEEP_F_MAX, f"32k sweep: max |f_batch| {max(b['f_max']):.2f} N "
+              f">= {SWEEP_F_MAX} N")
+        check(np.array_equal(best, ranks[0]["sweep"]["trace"]["best_idx"]),
+              "32k sweep: the ranks' winners differ")
+    print(f"32k sweep B={SWEEP_B} ({SWEEP_B // R} lanes a rank) N={N}, {SWEEP_TICKS} ticks: "
+          f"winners {ranks[0]['sweep']['trace']['best_idx'].tolist()}, max |f_batch| "
+          f"{max(max(r['sweep']['f_max']) for r in ranks):.2f} N; ms a tick "
+          + ", ".join(f"rank {r['rank']} {r['sweep']['event_ms_per_tick']:.3f} (CUDA events) "
+                      f"{r['sweep']['host_ms_per_tick']:.3f} (host)" for r in ranks), flush=True)
+
+    print("each rank's next-tick K1 and K2 consensus on its block against the plain versions "
+          "(phase 3's and phase 4's gates): " + "; ".join(
+              f"rank {r['rank']} {run} K1 {r[run]['checked']['k1_err']:.3e} on "
+              f"{SHARDED_B // R if run == 'loop' else SWEEP_K1_LANES} lanes, K2 "
+              f"{r[run]['checked']['k2_err']:.3e}, winner {r[run]['checked']['k2_best']} equal"
+              for r in ranks for run in ("loop", "sweep")), flush=True)
+
+    k1 = {}
+    for lanes in (SHARDED_B // R, SWEEP_B // R):
+        bound, by = bound_ms(*k1_work(lanes, N, cost, sqp, use_wrench=True))
+        k1[lanes] = {"ms": [r["k1_ms"][lanes] for r in ranks], "bound_ms": bound, "bound_by": by}
+    print("K1 alone, both ranks on the card: " + "; ".join(
+        f"{lanes} lanes " + ", ".join(f"{ms:.4f}" for ms in v["ms"])
+        + f" ms (bound {v['bound_ms'] * 1e3:.2f} us, {v['bound_by']})" for lanes, v in k1.items())
+        + "; consensus collectives alone at B=" + f"{SHARDED_B}: "
+        + ", ".join(f"{r['consensus_us']:.1f}" for r in ranks)
+        + f" us a tick, {ranks[0]['consensus_bytes']} bytes", flush=True)
+    cfg = PERTURBED_PLANT
+    k2 = {}
+    for lanes in (SHARDED_B // R, SWEEP_B // R, 1):
+        work = (k2_work(lanes, 0, False, False) if lanes > 1 else
+                k2_work(1, cfg.substeps, bool(cfg.viscous_friction or cfg.coulomb_friction),
+                        True, cfg.velocity_saturation))
+        bound, by = bound_ms(*work)
+        k2[lanes] = {"ms": [r["k2_ms"][lanes] for r in ranks], "bound_ms": bound, "bound_by": by}
+    print("K2 alone, both ranks on the card: " + "; ".join(
+        (f"consensus at {lanes} lanes " if lanes > 1 else "plant step at B=1 ")
+        + ", ".join(f"{ms:.4f}" for ms in v["ms"])
+        + f" ms (bound {v['bound_ms'] * 1e3:.3f} us, {v['bound_by']})" for lanes, v in k2.items()),
+        flush=True)
+    launches = {k: sum(r["loop"]["launches"][k] + r["sweep"]["launches"][k] for r in ranks)
+                for k in ("sqp_solve", "tick_epilogue")}
+    summary = {"ranks": R, "loop_ms_per_tick": [[r["loop"]["event_ms_per_tick"],
+                                                 r["loop"]["host_ms_per_tick"]] for r in ranks],
+               "sweep_ms_per_tick": [[r["sweep"]["event_ms_per_tick"],
+                                      r["sweep"]["host_ms_per_tick"]] for r in ranks],
+               "k1": k1, "k2": k2, "consensus_us": [r["consensus_us"] for r in ranks],
+               "consensus_bytes": ranks[0]["consensus_bytes"], "same_bits": bits,
+               "solve_same_bits": same_bits,
+               "block_checks": [{run: r[run]["checked"] for run in ("loop", "sweep")}
+                                for r in ranks]}
+    return launches, summary
+
+
 def main():
     try:
         import torch
@@ -1046,9 +1395,11 @@ def main():
         "readable_vs_two_kernel", phase_readable, dev)
     phases["mjcf_plant"] = timed("mjcf_plant", phase_mjcf_plant, dev)
     phases["qp_backends"], qp = timed("qp_backends", phase_qp_backends, dev, loop9)
+    phases["sharded"], sharded = timed("sharded", phase_sharded, dev)
     print("phase seconds: " + json.dumps(seconds), flush=True)
     print("readable: " + json.dumps(readable), flush=True)
     print("qp_backends: " + json.dumps(qp), flush=True)
+    print("sharded: " + json.dumps(sharded), flush=True)
     for k in kernels:
         k["launches"] = phases["run_sampled_mpc"][k["name"]]
         k["launches_by_phase"] = {p: n[k["name"]] for p, n in phases.items()}

@@ -13,6 +13,9 @@ skipped), winner gather and resampling; no plant.
 
 On CUDA both kernels run in float32; on the CPU their plain versions run
 in the inputs' dtype.  Neither tick reads a device value on the host.
+:class:`SampledTick` takes a lane mesh (``lane_mesh.py``), as the readable
+host tick does: its lanes are then this rank's block and the winner is
+chosen over every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from ..ops.kernels.sqp_kernel import require_kernel_config, sqp_solve
 from ..ops.kernels.tick_kernel import tick_epilogue
 from ..ops.lane_rbd import STATIC_FIELDS, StaticModel, static_model
 from ..sim.plant import perturb_model
+from .lane_mesh import LaneMesh, cross_rank_consensus, resample_lanes, single_rank_mesh
 from .sampled import (
     SampledLoopCarry, SampledTickResult, SampledTrace, TickDraws, draw_tick,
     resample_wrench_batch,
@@ -65,6 +69,15 @@ def broadcast_solve(smc, cost_cfg, sqp_cfg, dt, xk, goals, X_warm, U_warm, fb_T)
         U_warm.to(kdt)[:, :, None].expand(N - 1, 6, B).contiguous(),
         wrench=fb_T,
     )
+
+
+def walk_true_wrench(f_true, walk, ref_offset, enabled: bool):
+    """The true disturbance's random walk: every 200 reference steps (on
+    ``ref_offset``, a 0-d integer tensor) its force moves by ``walk`` (3,),
+    clamped to +-20 N; the torque is kept."""
+    walked = f_true.clone()
+    walked[:3] = torch.clamp(f_true[:3] + walk, -20.0, 20.0)
+    return torch.where((ref_offset % 200 == 0) & enabled, walked, f_true)
 
 
 def consensus_args(x_obs, x_last, u_last, f_batch_T, U0_T):
@@ -176,11 +189,7 @@ class FusedLoopTick(_StaticModels):
             draws.resample, carry.f_batch, ep.best, self.sample_cfg
         )
 
-        # True-disturbance random walk every 200 reference steps, +-20 N.
-        walked = carry.f_true.clone()
-        walked[:3] = torch.clamp(carry.f_true[:3] + draws.walk, -20.0, 20.0)
-        do_walk = (carry.ref_offset % 200 == 0) & self.f_true_walk
-        f_true = torch.where(do_walk, walked, carry.f_true)
+        f_true = walk_true_wrench(carry.f_true, draws.walk, carry.ref_offset, self.f_true_walk)
 
         eep = ep.eep.to(dtype)
         u = ep.u.to(dtype)
@@ -213,13 +222,19 @@ class SampledTick(_StaticModels):
     normals=None) -> (SampledTickResult, ee_pos)``: one host-driven
     controller tick (``mpc.sampled.sampled_tick``).
 
-    K1 solves the B lanes from the shared warm start.  Consensus is K2
+    K1 solves the lanes from the shared warm start.  Consensus is K2
     (:func:`consensus_args`; the TPU package does the same on its
     accelerator): it replays ``(x_last, u_last)`` under each hypothesis
-    and keeps the lane whose prediction lands nearest ``x_obs``, the first
-    NaN first; its plant step is skipped (``plant=False``).  ``ee_pos`` (3,) is the
-    end-effector position of ``x_obs``, from K2's trace FK.  Without
-    ``normals`` (B, 6) the resampling draws them from ``generator``.
+    and scores each prediction by its distance to ``x_obs``; its plant
+    step is skipped (``plant=False``).  The lane nearest ``x_obs`` wins,
+    the first NaN first (``lane_mesh.cross_rank_consensus``).  ``ee_pos``
+    (3,) is the end-effector position of ``x_obs``, from K2's trace FK.
+
+    ``f_batch`` and the result's ``f_batch`` are this rank's block of
+    ``mesh`` (default: one rank, all B lanes): K1 and K2 then run on the
+    block and the winner is chosen over the ranks.  Without ``normals``
+    (the full (B, 6) draws) the resampling draws them from ``generator``,
+    which every rank seeds alike.
     """
 
     def __init__(
@@ -230,12 +245,14 @@ class SampledTick(_StaticModels):
         sample_cfg: SampleConfig,
         dt: float,
         generator: Optional[torch.Generator] = None,
+        mesh: Optional[LaneMesh] = None,
     ):
         require_kernel_config(cost_cfg, sqp_cfg)
         super().__init__(smc=static_model(model))
         self.cost_cfg, self.sqp_cfg = cost_cfg, sqp_cfg
         self.sample_cfg, self.dt = sample_cfg, dt
         self.generator = generator
+        self.mesh = mesh or single_rank_mesh()
 
     def forward(self, x_obs, x_last, u_last, goals, X_warm, U_warm, f_batch, normals=None):
         dtype, device = x_obs.dtype, x_obs.device
@@ -244,9 +261,8 @@ class SampledTick(_StaticModels):
         if normals is None:
             if self.generator is None:
                 raise ValueError("tick called without normals and without a generator")
-            normals = torch.randn(
-                f_batch.shape, generator=self.generator, device=device, dtype=dtype
-            )
+            normals = torch.randn((f_batch.shape[0] * self.mesh.size, 6),
+                                  generator=self.generator, device=device, dtype=dtype)
         xk = x_obs.to(kdt)
         fb_T = f_batch.to(kdt).T.contiguous()
         X, U, _rho, alphas, _steps = broadcast_solve(
@@ -254,19 +270,19 @@ class SampledTick(_StaticModels):
         )
         ep = tick_epilogue(smc, smc, None, self.dt, *consensus_args(
             xk, x_last.to(kdt), u_last.to(kdt), fb_T, U[0]), plant=False)
-        best, eep = ep.best, ep.eep.to(dtype)
-        idx = best.reshape(1)
-        X_best = X.index_select(2, idx)[:, :, 0].to(dtype)
-        U_best = U.index_select(2, idx)[:, :, 0].to(dtype)
+        w = cross_rank_consensus(self.mesh, ep.err, X.permute(2, 0, 1), U.permute(2, 0, 1),
+                                 f_batch, (alphas > 0).sum(0))
+        U_best = w.U_best.to(dtype)
         return SampledTickResult(
             u=U_best[0],
-            best_idx=best,
-            X_best=X_best,
+            best_idx=w.best,
+            X_best=w.X_best.to(dtype),
             U_best=U_best,
-            f_batch=resample_wrench_batch(normals, f_batch, best, self.sample_cfg),
-            f_est=f_batch.index_select(0, idx)[0],
-            sqp_iters=(alphas > 0).sum(0).index_select(0, idx)[0],
-        ), eep
+            f_batch=resample_lanes(self.mesh, normals, f_batch, w.best, w.f_est,
+                                   self.sample_cfg),
+            f_est=w.f_est,
+            sqp_iters=w.sqp_iters,
+        ), ep.eep.to(dtype)
 
 
 def make_fused_loop_tick(

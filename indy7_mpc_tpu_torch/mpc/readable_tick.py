@@ -16,6 +16,11 @@ the ticks of every configuration outside kernel K1's coverage.  They take
 the same draws (:class:`.sampled.TickDraws`) as the kernel ticks, run in
 the inputs' dtype on the inputs' device, and launch no kernel of this
 package unless the injected solver does.
+
+Both take a lane mesh (``lane_mesh.py``): the hypothesis batch is then
+this rank's block of the B lanes, the winner is chosen over every rank
+and the resampling uses global lane indices.  By default the mesh is one
+rank with no collectives, the single-process tick.
 """
 from __future__ import annotations
 
@@ -33,10 +38,10 @@ from ..ops.kernels.tick_kernel import first_argmin
 from ..sim.plant import perturb_model, plant_friction
 from ..sim.readable_plant import plant_step, predict_next_states
 from ..solvers import sqp as sqp_mod
-from .fused_tick import reference_window
+from .fused_tick import reference_window, walk_true_wrench
+from .lane_mesh import LaneMesh, cross_rank_consensus, resample_lanes, single_rank_mesh
 from .sampled import (
     SampledLoopCarry, SampledTickResult, SampledTrace, TickDraws, draw_tick,
-    resample_wrench_batch,
 )
 
 
@@ -82,8 +87,13 @@ class ReadableSampledTick(_Models):
     normals=None) -> (SampledTickResult, ee_pos)``, the same contract as
     ``fused_tick.SampledTick``, on ``batch_solve_fn`` (default: the
     readable solver).  ``sqp_iters`` is the winner's count as the solver
-    reports it (the readable solver counts the iterations run).  Without
-    ``normals`` (B, 6) the resampling draws them from ``generator``."""
+    reports it (the readable solver counts the iterations run).
+
+    ``f_batch`` and the result's ``f_batch`` are this rank's block of
+    ``mesh`` (default: one rank, all B lanes); everything else is the same
+    on every rank.  Without ``normals`` (the full (B, 6) draws) the
+    resampling draws them from ``generator``, which every rank seeds
+    alike."""
 
     def __init__(
         self,
@@ -94,6 +104,7 @@ class ReadableSampledTick(_Models):
         dt: float,
         generator: Optional[torch.Generator] = None,
         batch_solve_fn: Optional[Callable] = None,
+        mesh: Optional[LaneMesh] = None,
     ):
         sqp_mod.require_qp_backend(sqp_cfg)
         super().__init__(ctl=model)
@@ -101,34 +112,34 @@ class ReadableSampledTick(_Models):
         self.sample_cfg, self.dt = sample_cfg, dt
         self.generator = generator
         self.batch_solve_fn = batch_solve_fn
+        self.mesh = mesh or single_rank_mesh()
 
     def forward(self, x_obs, x_last, u_last, goals, X_warm, U_warm, f_batch, normals=None):
         (model,) = self.models(x_obs.dtype)
+        b = f_batch.shape[0]
         if normals is None:
             if self.generator is None:
                 raise ValueError("tick called without normals and without a generator")
-            normals = torch.randn(f_batch.shape, generator=self.generator,
+            normals = torch.randn((b * self.mesh.size, 6), generator=self.generator,
                                   device=x_obs.device, dtype=x_obs.dtype)
-        B = f_batch.shape[0]
         X0 = torch.cat([x_obs[None], X_warm[1:]])  # the measured state pinned
-        lanes = lambda t: t[None].expand((B,) + t.shape)
+        lanes = lambda t: t[None].expand((b,) + t.shape)
         # The default solver takes the model already on the inputs' device.
         solve = self.batch_solve_fn or sqp_mod.batch_solve_fn(
             model, self.cost_cfg, self.sqp_cfg, self.dt)
         res = solve(lanes(x_obs), lanes(goals), lanes(X0), lanes(U_warm), f_batch)
 
-        best, _ = readable_consensus(model, x_last, u_last, x_obs, self.dt, f_batch)
-        idx = best.reshape(1)
-        X_best = res.X.index_select(0, idx)[0]
-        U_best = res.U.index_select(0, idx)[0]
+        _, err = readable_consensus(model, x_last, u_last, x_obs, self.dt, f_batch)
+        w = cross_rank_consensus(self.mesh, err, res.X, res.U, f_batch, res.stats.iterations)
         return SampledTickResult(
-            u=U_best[0],
-            best_idx=best,
-            X_best=X_best,
-            U_best=U_best,
-            f_batch=resample_wrench_batch(normals, f_batch, best, self.sample_cfg),
-            f_est=f_batch.index_select(0, idx)[0],
-            sqp_iters=res.stats.iterations.index_select(0, idx)[0],
+            u=w.U_best[0],
+            best_idx=w.best,
+            X_best=w.X_best,
+            U_best=w.U_best,
+            f_batch=resample_lanes(self.mesh, normals, f_batch, w.best, w.f_est,
+                                   self.sample_cfg),
+            f_est=w.f_est,
+            sqp_iters=w.sqp_iters,
         ), ee_pos(model, x_obs[: model.nq])
 
 
@@ -141,6 +152,13 @@ class ReadableLoopTick(nn.Module):
     the controller's, perturbed by ``plant_cfg``) with friction, actuation
     noise and joint stops.  Without ``draws`` the tick draws its random
     numbers from ``generator``, which must live on the carry's device.
+
+    With a ``mesh`` of several ranks the carry's ``f_batch`` is this rank's
+    block and the rest is the same on every rank: the controller tick
+    chooses the winner over the ranks, and every rank steps the same plant
+    on the same draws.  A subclass swaps the controller and the plant
+    through :meth:`controller`, :meth:`plant_models` and
+    :meth:`step_plant`.
     """
 
     def __init__(
@@ -156,22 +174,48 @@ class ReadableLoopTick(nn.Module):
         plant_cfg: Optional[PlantConfig] = None,
         plant_model: Optional[RobotModel] = None,
         generator: Optional[torch.Generator] = None,
+        mesh: Optional[LaneMesh] = None,
     ):
         super().__init__()
         ref_traj = torch.as_tensor(ref_traj)
         if ref_traj.shape[0] < mpc_cfg.N:
             raise ValueError("reference trajectory shorter than the horizon")
         self.plant_cfg = plant_cfg or PlantConfig(substeps=mpc_cfg.sim_substeps)
-        self.sampled = ReadableSampledTick(
-            model, cost_cfg, sqp_cfg, sample_cfg, mpc_cfg.dt, batch_solve_fn=batch_solve_fn
+        self.sampled = self.controller(
+            model, cost_cfg, sqp_cfg, sample_cfg, mpc_cfg.dt, batch_solve_fn,
+            mesh or single_rank_mesh(),
         )
-        self.plant = _Models(plant=perturb_model(
+        self.plant = self.plant_models(model, perturb_model(
             model if plant_model is None else plant_model, self.plant_cfg))
         self.sample_cfg = sample_cfg
         self.N, self.dt = mpc_cfg.N, mpc_cfg.dt
         self.f_true_walk = f_true_walk
         self.generator = generator
         self.register_buffer("ref_traj", ref_traj)
+
+    def controller(self, model, cost_cfg, sqp_cfg, sample_cfg, dt, batch_solve_fn, mesh):
+        """The controller tick: a :class:`ReadableSampledTick`."""
+        return ReadableSampledTick(model, cost_cfg, sqp_cfg, sample_cfg, dt,
+                                   batch_solve_fn=batch_solve_fn, mesh=mesh)
+
+    def plant_models(self, model: RobotModel, plant: RobotModel) -> nn.Module:
+        """The models :meth:`step_plant` reads, as a module (so that ``.to``
+        moves them): the perturbed plant."""
+        return _Models(plant=plant)
+
+    def step_plant(self, x, u, f_true, noise):
+        """The ground-truth plant step under the true wrench."""
+        cfg = self.plant_cfg
+        (plant,) = self.plant.models(x.dtype)
+        return plant_step(
+            plant, x, u, self.dt, wrench_world=f_true, substeps=cfg.substeps,
+            friction=plant_friction(cfg), noise=noise,
+            velocity_saturation=cfg.velocity_saturation,
+        )
+
+    @staticmethod
+    def tracking_error(eep, goal):
+        return torch.linalg.norm(eep - goal)
 
     def forward(self, carry: SampledLoopCarry, draws: Optional[TickDraws] = None):
         x = carry.x
@@ -184,25 +228,14 @@ class ReadableLoopTick(nn.Module):
             carry.f_batch, normals=draws.resample,
         )
 
-        # The ground-truth plant step under the true wrench.
         cfg = self.plant_cfg
-        (plant,) = self.plant.models(x.dtype)
         noise = cfg.torque_noise_std * draws.plant if cfg.torque_noise_std else None
-        x_next = plant_step(
-            plant, x, out.u, self.dt, wrench_world=carry.f_true, substeps=cfg.substeps,
-            friction=plant_friction(cfg), noise=noise,
-            velocity_saturation=cfg.velocity_saturation,
-        )
+        x_next = self.step_plant(x, out.u, carry.f_true, noise)
 
-        # True-disturbance random walk every 200 reference steps, +-20 N.
-        walked = torch.cat([
-            torch.clamp(carry.f_true[:3] + draws.walk, -20.0, 20.0), carry.f_true[3:]
-        ])
-        do_walk = (carry.ref_offset % 200 == 0) & self.f_true_walk
-        f_true = torch.where(do_walk, walked, carry.f_true)
+        f_true = walk_true_wrench(carry.f_true, draws.walk, carry.ref_offset, self.f_true_walk)
 
         trace = SampledTrace(
-            tracking_error=torch.linalg.norm(eep - goals[0]),
+            tracking_error=self.tracking_error(eep, goals[0]),
             ee_pos=eep,
             ee_ref=goals[0],
             q=x[:6],

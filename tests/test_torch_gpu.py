@@ -111,6 +111,12 @@ def _k1_against_plain(sm, sqp, args, kw):
     assert sqp_solve.launches == before + 1
     p = solve_lane_major(sm, COST, sqp, DT, *args, **kw)
     torch.cuda.synchronize()
+    _k1_outputs_match(k, p)
+
+
+def _k1_outputs_match(k, p):
+    """K1's outputs ``k`` against the plain version's ``p`` on the same
+    lanes: alphas equal, rho to 1e-6, X and U to 6e-3 scaled per lane."""
     np.testing.assert_array_equal(k[3].cpu().numpy(), p[3].cpu().numpy())
     np.testing.assert_allclose(k[2].cpu().numpy(), p[2].cpu().numpy(), rtol=1e-6)
     for a, b in ((k[0], p[0]), (k[1], p[1])):
@@ -338,6 +344,28 @@ def test_tick_kernel_consensus_without_plant_matches_plain(cuda):
     assert k.x_next is None and full.x_next is not None
     for name in ("err", "best", "u", "eep", "f_est"):
         assert torch.equal(getattr(k, name), getattr(full, name))
+
+
+@pytest.mark.parametrize("lanes", [128, 16384])
+def test_kernels_at_sharded_block_widths_match_plain(cuda, lanes):
+    """K1 and K2's consensus at a rank's block of the sharded loop (128 and
+    16,384 lanes: B=256 and B=32,768 over two ranks).  K1 on every lane,
+    held on 128 lanes spread over the block against the plain version on
+    those lanes' inputs (K1 solves each lane in its own block) at
+    _k1_against_plain's tolerances; K2 with its plant step skipped on every
+    lane at phase 4's, the winner equal (past 256 lanes K2 scores a lane
+    per thread)."""
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    args, kw = _k1_inputs(cuda, lanes, 8, seed=lanes)
+    k = sqp_solve(sm, COST, SQP, DT, *args, **kw)
+    sel = torch.linspace(0, lanes - 1, 128, device=cuda).round().long()
+    pick = lambda t: t.index_select(t.dim() - 1, sel).contiguous()
+    p = solve_lane_major(sm, COST, SQP, DT, *map(pick, args), wrench=pick(kw["wrench"]))
+    torch.cuda.synchronize()
+    _k1_outputs_match([pick(t) for t in k], p)
+    x_cur, x_last, u_last, f_batch, U0, _, _ = _k2_args(cuda, lanes, seed=lanes)
+    _k2_against_plain(sm, sm, None, consensus_args(x_cur, x_last, u_last, f_batch, U0),
+                      plant=False)
 
 
 def test_tick_kernel_refuses_bad_launches(cuda):
@@ -633,3 +661,64 @@ def test_indy7_mjcf_on_the_card_equals_cpu(cuda):
         for f in FIELDS:
             assert getattr(on_card, f).device.type == "cuda"
             assert torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)), f
+
+
+def test_sharded_batch_solve_on_the_card_matches_k1(cuda):
+    """Two gloo ranks sharing the card, each launching K1 once on its 32
+    lanes: the gathered solve is the single-process K1's, bit for bit
+    (K1 solves each lane in its own block)."""
+    from indy7_mpc_tpu_torch.parallel import _worker
+    from indy7_mpc_tpu_torch.solvers import sqp_cuda
+
+    rng = np.random.default_rng(31)
+    lanes, horizon = 64, 16
+    w = rng.normal(size=(lanes, 6)) * 8
+    w[:, 3:] = 0.0
+    arrays = tuple(np.asarray(a, np.float32) for a in (
+        rng.normal(size=(lanes, 12)) * 0.05, rng.normal(size=(lanes, horizon, 3)) * 0.3,
+        rng.normal(size=(lanes, horizon, 12)) * 0.05,
+        rng.normal(size=(lanes, horizon - 1, 6)) * 0.5, w))
+    out = _worker.spawn(_worker.batch_solve_job, 2, COST, SQP, DT, arrays, "kernel",
+                        device="cuda:0", backend="gloo", timeout=300)
+    single = sqp_cuda.batch_solve(indy7(torch.float32, cuda), COST, SQP, DT,
+                                  *(_f32(a, cuda) for a in arrays[:4]),
+                                  wrench_world_batch=_f32(arrays[4], cuda))
+    for r in out:
+        assert (r["lanes"], r["launches"]) == (lanes // 2, 1)
+        np.testing.assert_array_equal(r["alphas"], single.stats.alphas.cpu().numpy())
+        np.testing.assert_array_equal(r["X"], single.X.cpu().numpy())
+        np.testing.assert_array_equal(r["U"], single.U.cpu().numpy())
+
+
+def test_sharded_closed_loop_on_the_card_matches_single_process(cuda):
+    """Two gloo ranks sharing the card run 20 ticks of the sharded loop
+    (K1 on 8 lanes each, K2 as the block's consensus and as the B = 1 plant
+    step) from the seed of a single-process ``run_sampled_mpc`` on the
+    card: the winners equal on every tick, u within the scaled 6e-3, both
+    ranks' traces equal, K1 once and K2 twice a tick on each rank."""
+    from indy7_mpc_tpu_torch.parallel import _worker
+
+    lanes, horizon, ticks = 16, 16, 20
+    mcfg = MPCConfig(N=horizon, dt=DT)
+    scfg = SampleConfig(batch_size=lanes, f_ext_std=20.0, f_ext_resample_std=1.0)
+    ref = np.asarray(reference.with_padding(reference.figure8(
+        A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT, cycles=1), 200)[190:],
+        np.float32)
+    x0 = np.r_[INIT_Q, np.zeros(6)].astype(np.float32)
+    job = dict(cost_cfg=COST, sqp_cfg=SQP, mpc_cfg=mcfg, sample_cfg=scfg, ref=ref, ticks=ticks,
+               backend="kernel", plant_cfg=PERTURBED_PLANT, x0=x0, f_true0=F_TRUE0, seed=42)
+    out = [r[0] for r in _worker.spawn(_worker.run_jobs, 2, [(_worker.loop_job, job)],
+                                       device="cuda:0", backend="gloo", timeout=300)]
+    _, tr = run_sampled_mpc(indy7(torch.float32, cuda), COST, SQP, mcfg, scfg,
+                            _f32(x0, cuda), ref, ticks, F_TRUE0,
+                            torch.Generator(device=cuda).manual_seed(42),
+                            plant_cfg=PERTURBED_PLANT)
+    u = tr.u.cpu().numpy()
+    for r in out:
+        assert r["launches"] == (ticks, 2 * ticks)
+        assert r["f_batch_block"] == (lanes // 2, 6)
+        np.testing.assert_array_equal(r["trace"]["best_idx"], tr.best_idx.cpu().numpy())
+        scaled = np.abs(r["trace"]["u"] - u).max() / max(1.0, np.abs(u).max())
+        assert scaled <= 6e-3, scaled
+        for f, v in r["trace"].items():
+            np.testing.assert_array_equal(v, out[0]["trace"][f], err_msg=f)

@@ -114,7 +114,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      clock (the first chunk left out), K1 alone at 128 and 16,384 lanes
      and K2 alone as the consensus at those widths and as the B=1 plant
      step (on the next tick's arguments) with both ranks on the card, and
-     the consensus collectives alone (us a tick and their bytes).
+     the consensus collectives alone (us a tick and their bytes);
+ 13. the recorded runs: the device rows perturbed_b64_device and
+     perturbed_b1024_device of examples/record_runs.py's protocol
+     (fig-8 of 10 cycles after 200 rows of padding, N=64, 2 SQP
+     iterations, the perturbed plant, true wrench [-60, 20, -40] N with
+     its walk), 3,500 ticks each, through the port's
+     examples/record_runs.py::run_device_resident (chunks of 100 after a
+     warm-up chunk): K1 and K2 launched once a tick plus the warm-up
+     chunk, all eight recorded arrays finite with 3,500 rows; on the
+     next tick of each row K1 (all lanes) and K2 with the plant step
+     against their plain versions at phase 3's and phase 4's gates; each
+     row's tracking mean and p95 within 1.25x of its golden in stats_tpu/
+     and its wrench-estimate error p50 within 1.5x; the tracking mean at
+     B=1,024 below B=64's (the ensemble claim).  Printed: each row's
+     tracking, wrench error and re-lock lag beside the golden's, its us a
+     tick by the host clock and by CUDA events, and the card.
 
 Each kernel's bound is the larger of its floating-point operations on
 the phase's inputs over 67 TFLOP/s and the bytes of its inputs and
@@ -131,8 +146,9 @@ not fit K1's shared memory, fails its phase.
 
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON summary (``launches_by_phase`` has phase 11
-as ``qp_backends``, with 0 launches of each, and phase 12 as
-``sharded``, the launches of (a) and (b) summed over the ranks); the
+as ``qp_backends``, with 0 launches of each, phase 12 as ``sharded``,
+the launches of (a) and (b) summed over the ranks, and phase 13 as
+``recorded_runs``, both rows' launches summed); the
 last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -171,6 +187,11 @@ SWEEP_B, SWEEP_TICKS, SWEEP_F_MAX = 32768, 5, 60.0
 SWEEP_K1_LANES = 256  # of a rank's 16,384, held against K1's plain version
 SWEEP_SAMPLE = {"f_ext_std": 10.0, "f_ext_resample_std": 0.5}
 SWEEP_F_TRUE = [8.0, 0.0, -12.0, 0.0, 0.0, 0.0]
+# Phase 13: the recorded device rows (examples/record_runs.py --transport
+# device) and their gates against the goldens: tracking mean and p95
+# within 1.25x, wrench-estimate error p50 within 1.5x.
+RECORDED_B, RECORDED_TICKS = (64, 1024), 3500
+TRACKING_GATE, WRENCH_GATE = 1.25, 1.5
 
 
 class SmokeFailure(Exception):
@@ -1046,19 +1067,23 @@ def phase_qp_backends(dev, loop9):
     return counts, out
 
 
-def check_block_kernels(label, model, cost, sqp, carry, ref, k1_lanes):
+def check_block_kernels(label, model, cost, sqp, carry, ref, k1_lanes, plant_cfg=None):
     """The next tick's K1 and K2 calls on this rank's block, from a sharded
     loop's last carry, against their plain versions: K1 on ``k1_lanes``
     lanes spread over the block (its lanes are independent) at phase 3's
     gates, and K2 as the block's consensus (its plant step skipped) on
-    every lane at phase 4's, the winner equal.  Returns the max abs errors
-    of K1 and K2 with K2's winner in the block, and K2's arguments."""
+    every lane at phase 4's, the winner equal.  With ``plant_cfg`` (a
+    one-process device loop's carry) K2 is instead the loop's call: the
+    consensus with the plant step of ``plant_cfg`` under the carry's true
+    wrench and seeded actuation noise.  Returns the max abs errors of K1
+    and K2 with K2's winner in the block, and K2's arguments."""
     import torch
 
     from indy7_mpc_tpu_torch.mpc.fused_tick import (
         broadcast_solve, consensus_args, reference_window,
     )
     from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.sim.plant import perturb_model
     from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
 
     smc = LR.static_model(model)
@@ -1074,9 +1099,19 @@ def check_block_kernels(label, model, cost, sqp, carry, ref, k1_lanes):
                          lanes(carry.U_best), wrench=fb_T.index_select(1, sel))
     k1_err = check_k1_call(f"{label}: K1 at {fb_T.shape[1]} lanes", [
         None if t is None else t.index_select(-1, sel) for t in (k[0], k[1], None, k[3])], p)
-    k2_args = consensus_args(x, carry.x_last, carry.u_last, fb_T, k[1][0])
-    best, k2_err = check_k2_call(f"{label}: K2's consensus at {fb_T.shape[1]} lanes", smc, smc,
-                                 None, k2_args, plant=False)
+    if plant_cfg is None:
+        k2_args = consensus_args(x, carry.x_last, carry.u_last, fb_T, k[1][0])
+        best, k2_err = check_k2_call(f"{label}: K2's consensus at {fb_T.shape[1]} lanes", smc,
+                                     smc, None, k2_args, plant=False)
+    else:
+        gen = torch.Generator(device=x.device).manual_seed(13)
+        noise = plant_cfg.torque_noise_std * torch.randn((plant_cfg.substeps, 6), generator=gen,
+                                                         device=x.device)
+        k2_args = (x, carry.x_last.contiguous(), carry.u_last.contiguous(), fb_T, k[1][0],
+                   carry.f_true.contiguous(), noise)
+        best, k2_err = check_k2_call(f"{label}: K2 with the plant at {fb_T.shape[1]} lanes", smc,
+                                     LR.static_model(perturb_model(model, plant_cfg)),
+                                     plant_cfg, k2_args)
     return {"k1_err": k1_err, "k2_err": k2_err, "k2_best": best}, k2_args
 
 
@@ -1346,6 +1381,76 @@ def phase_sharded(dev):
     return launches, summary
 
 
+def phase_recorded_runs(dev):
+    """Phase 13: the device rows of examples/record_runs.py's protocol
+    through the port's ``record_runs.run_device_resident``, each held
+    against its golden in stats_tpu/ and its kernels against their plain
+    versions on its next tick."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch.config import PERTURBED_PLANT, CostConfig, SQPConfig
+    from indy7_mpc_tpu_torch.examples import protocol, record_runs
+    from indy7_mpc_tpu_torch.models import indy7
+
+    cost, sqp = CostConfig(), SQPConfig(max_iters=SQP_ITERS)
+    model = indy7(torch.float32, dev)
+    ref = protocol.fig8_reference(RECORDED_TICKS)
+    total = {"sqp_solve": 0, "tick_epilogue": 0}
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="indy7_recorded_") as out:
+        for lanes in RECORDED_B:
+            tag = record_runs.row_tag("perturbed", lanes, "device")
+            reset_counts()
+            row, carry = record_runs.run_device_resident(lanes, RECORDED_TICKS, PERTURBED_PLANT,
+                                                         out, tag, device=dev)
+            launches = read_counts()
+            want = RECORDED_TICKS + row["chunk"]  # the ticks and the warm-up chunk
+            check(launches == {"sqp_solve": want, "tick_epilogue": want},
+                  f"{tag}: launches {launches}, want {want} of each (ticks + warm-up chunk)")
+            for k in total:
+                total[k] += launches[k]
+            arrays = record_runs.load_recording(row["stem"])
+            for name, a in arrays.items():
+                check(a is not None and a.shape[0] == RECORDED_TICKS,
+                      f"{tag}: recorded {name} missing or not {RECORDED_TICKS} rows")
+                check(bool(np.isfinite(a).all()), f"{tag}: recorded {name} not finite")
+            checked, _ = check_block_kernels(tag, model, cost, sqp, carry, ref, lanes,
+                                             plant_cfg=PERTURBED_PLANT)
+            gold = record_runs.golden_stats(tag)
+            check(gold is not None, f"{tag}: no golden in stats_tpu/")
+            te, g_te = row["tracking_m"], gold["tracking_m"]
+            print(f"{tag}: ticks {row['ticks']}; tracking m mean/p50/p95 "
+                  f"{te[0]:.4f}/{te[1]:.4f}/{te[2]:.4f} (golden {g_te[0]:.4f}/{g_te[1]:.4f}/"
+                  f"{g_te[2]:.4f}); wrench error p50 {row['fe_err_p50']:.2f} N (golden "
+                  f"{gold['fe_err_p50']:.2f}), re-lock lag p50 {row.get('fe_lag_p50')} (golden "
+                  f"{gold.get('fe_lag_p50')}); us a tick, host clock mean/p50/p95/max "
+                  + "/".join(f"{v:.1f}" for v in row["solve_us"])
+                  + f", CUDA events {row['event_us']:.1f}; the next tick's K1 (all {lanes} "
+                  f"lanes) max abs err {checked['k1_err']:.3e}, K2 with the plant "
+                  f"{checked['k2_err']:.3e} (winner {checked['k2_best']}); launches {launches}; "
+                  f"{card_line()}", flush=True)
+            for i, name in ((0, "mean"), (2, "p95")):
+                check(te[i] <= TRACKING_GATE * g_te[i],
+                      f"{tag}: tracking {name} {te[i]:.4f} m above {TRACKING_GATE}x the "
+                      f"golden's {g_te[i]:.4f} m")
+            check(row["fe_err_p50"] <= WRENCH_GATE * gold["fe_err_p50"],
+                  f"{tag}: wrench error p50 {row['fe_err_p50']:.2f} N above {WRENCH_GATE}x the "
+                  f"golden's {gold['fe_err_p50']:.2f} N")
+            rows[tag] = {k: row.get(k) for k in ("tracking_m", "fe_err_p50", "fe_lag_p50",
+                                                  "solve_us", "event_us", "init_s", "wall_s")}
+            rows[tag].update(golden={k: gold.get(k) for k in ("tracking_m", "fe_err_p50",
+                                                              "fe_lag_p50")},
+                             kernels=checked, launches=launches)
+    means = [rows[record_runs.row_tag("perturbed", b, "device")]["tracking_m"][0]
+             for b in RECORDED_B]
+    check(means[1] < means[0], f"tracking mean at B={RECORDED_B[1]} ({means[1]:.4f} m) not "
+          f"below B={RECORDED_B[0]}'s ({means[0]:.4f} m): the ensemble claim fails")
+    return total, rows
+
+
 def main():
     try:
         import torch
@@ -1396,7 +1501,9 @@ def main():
     phases["mjcf_plant"] = timed("mjcf_plant", phase_mjcf_plant, dev)
     phases["qp_backends"], qp = timed("qp_backends", phase_qp_backends, dev, loop9)
     phases["sharded"], sharded = timed("sharded", phase_sharded, dev)
+    phases["recorded_runs"], recorded = timed("recorded_runs", phase_recorded_runs, dev)
     print("phase seconds: " + json.dumps(seconds), flush=True)
+    print("recorded_runs: " + json.dumps(recorded), flush=True)
     print("readable: " + json.dumps(readable), flush=True)
     print("qp_backends: " + json.dumps(qp), flush=True)
     print("sharded: " + json.dumps(sharded), flush=True)

@@ -722,3 +722,36 @@ def test_sharded_closed_loop_on_the_card_matches_single_process(cuda):
         assert scaled <= 6e-3, scaled
         for f, v in r["trace"].items():
             np.testing.assert_array_equal(v, out[0]["trace"][f], err_msg=f)
+
+
+def test_device_recording_on_the_card_equals_run_sampled_mpc(cuda, tmp_path):
+    """``record_runs.run_device_resident`` on the card (B=64, N=64, 20
+    ticks in chunks of 8, 8 and 4 after a warm-up chunk) against
+    ``run_sampled_mpc`` from the same seed on the same reference: the
+    recorded arrays and the final carry equal bit for bit, so the entry
+    point adds nothing to the loop; K1 and K2 once a tick plus the
+    warm-up chunk."""
+    from indy7_mpc_tpu_torch.examples import protocol, record_runs
+
+    ticks, lanes = 20, 64
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    row, carry = record_runs.run_device_resident(lanes, ticks, PERTURBED_PLANT, str(tmp_path),
+                                                 "run", chunk=8, device=cuda)
+    assert (sqp_solve.launches - before[0], tick_epilogue.launches - before[1]) == (28, 28)
+    assert row["ticks"] == ticks and row["event_us"] > 0
+    rec = record_runs.load_recording(row["stem"])
+    cost, sqp, mpc_cfg, sample_cfg = protocol.configs(lanes)
+    final, tr = run_sampled_mpc(indy7(torch.float32, cuda), cost, sqp, mpc_cfg, sample_cfg,
+                                protocol.initial_state(torch.float32, cuda),
+                                protocol.fig8_reference(ticks), ticks, protocol.F_TRUE0,
+                                torch.Generator(device=cuda).manual_seed(42),
+                                plant_cfg=PERTURBED_PLANT)
+    np_ = lambda t: t.cpu().numpy()
+    for name, field in (("tracking_errors", "tracking_error"), ("ee_positions", "ee_pos"),
+                        ("ee_ref_positions", "ee_ref"), ("joint_positions", "q"),
+                        ("f_est", "f_est"), ("f_true", "f_true")):
+        want = np_(getattr(tr, field))
+        np.testing.assert_array_equal(rec[name], want.astype(rec[name].dtype), err_msg=name)
+    np.testing.assert_array_equal(rec["dts"], np.full(ticks, DT))
+    for a, b in zip(carry, final):
+        assert torch.equal(a, b)

@@ -129,7 +129,27 @@ Phases, each fatal on failure (exit code 1, no result line):
      and its wrench-estimate error p50 within 1.5x; the tracking mean at
      B=1,024 below B=64's (the ensemble claim).  Printed: each row's
      tracking, wrench error and re-lock lag beside the golden's, its us a
-     tick by the host clock and by CUDA events, and the card.
+     tick by the host clock and by CUDA events, and the card;
+ 14. the diagnostic tools (indy7_mpc_tpu_torch/tools/), each through its
+     main() on the card at short lengths: latency_decomp --ticks 200,
+     profile_kernel_stages 64 64, profile_solve 64 64 --backend cuda
+     --trace (as python3 -m, in a process of its own), profile_pscan 64 64
+     --chain 5, consensus_collective_bench (2 ranks on cuda:0 over gloo)
+     and multihost_eff --procs 2 --ticks 100;
+     each JSON line parses and carries the keys (or, for a tool that prints
+     a table, the row names) of the TPU package's tool of the same name,
+     read from its source with ast (multihost_eff: the committed
+     MULTIHOST_EFF.json's keys); in latency_decomp solve_device <=
+     solve_block, null_rtt < solve_block, no kernel-library build or load
+     and no allocator growth after the loop's first tick, the loop's tick
+     p50 under the 10,000 us period; one K1 solve of the tool's inputs and
+     the K2 call of one on_state against their plain versions at phase 3's
+     and phase 4's gates (the on_state after 20 ticks of the tool's loop
+     against the perturbed plant); the stage profile's cumulative times
+     non-decreasing (5% slack) with stages<=4 within 25% of phase 3's K1
+     time; the trace file written and naming K1's kernel; the consensus
+     bench's bytes those of consensus_bytes(B, N); the winners of
+     multihost_eff's ranks and of its one rank equal.
 
 Each kernel's bound is the larger of its floating-point operations on
 the phase's inputs over 67 TFLOP/s and the bytes of its inputs and
@@ -148,7 +168,8 @@ The line before the last is the card's name and power limit, the one
 before it the kernels' JSON summary (``launches_by_phase`` has phase 11
 as ``qp_backends``, with 0 launches of each, phase 12 as ``sharded``,
 the launches of (a) and (b) summed over the ranks, and phase 13 as
-``recorded_runs``, both rows' launches summed); the
+``recorded_runs``, both rows' launches summed, and phase 14 as ``tools``,
+the launches of this process: the ranks' are their own); the
 last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -192,6 +213,9 @@ SWEEP_F_TRUE = [8.0, 0.0, -12.0, 0.0, 0.0, 0.0]
 # within 1.25x, wrench-estimate error p50 within 1.5x.
 RECORDED_B, RECORDED_TICKS = (64, 1024), 3500
 TRACKING_GATE, WRENCH_GATE = 1.25, 1.5
+# Phase 14: the tools' lengths and the stage profile's gates.
+TOOLS_TICKS, TOOLS_EFF_TICKS, PSCAN_CHAIN = 200, 100, 5
+STAGE_SLACK, STAGE_GATE = 0.05, 0.25
 
 
 class SmokeFailure(Exception):
@@ -365,21 +389,21 @@ def check_k2_call(label, smc, smp, cfg, args, plant=True):
     torch.cuda.synchronize()
     np_ = lambda t: t.cpu().numpy()
     check(int(k.best) == int(p.best), f"{label}: winner {int(k.best)} != plain {int(p.best)}")
+    fields = ("err", "x_next", "u", "eep", "f_est") if plant else ("err", "u", "eep", "f_est")
     if not plant:
         check(k.x_next is None and p.x_next is None, f"{label}: x_next without the plant")
-        k, p = k._replace(x_next=k.err), p._replace(x_next=p.err)
     try:
         np.testing.assert_allclose(np_(k.err), np_(p.err), rtol=1e-3, atol=1e-5)
-        np.testing.assert_allclose(np_(k.x_next), np_(p.x_next), atol=2e-3)
+        if plant:
+            np.testing.assert_allclose(np_(k.x_next), np_(p.x_next), atol=2e-3)
         np.testing.assert_allclose(np_(k.u), np_(p.u))
         np.testing.assert_allclose(np_(k.f_est), np_(p.f_est))
         np.testing.assert_allclose(np_(k.eep), np_(p.eep), atol=1e-5)
     except AssertionError as e:
         raise SmokeFailure(f"{label}: disagrees with its plain version: {e}")
-    for t in (k.err, k.x_next, k.eep):
-        check(bool(torch.isfinite(t).all()), f"{label}: output not finite")
-    err = max((a - b).abs().max().item() for a, b in zip(
-        (k.err, k.x_next, k.u, k.eep, k.f_est), (p.err, p.x_next, p.u, p.eep, p.f_est)))
+    for f in fields:
+        check(bool(torch.isfinite(getattr(k, f)).all()), f"{label}: {f} not finite")
+    err = max((getattr(k, f) - getattr(p, f)).abs().max().item() for f in fields)
     return int(k.best), err
 
 
@@ -1451,6 +1475,219 @@ def phase_recorded_runs(dev):
     return total, rows
 
 
+def tpu_tool_keys(name):
+    """What the TPU package's ``tools/<name>.py`` reports, read from its
+    source with ast: the keys of its JSON line, or for a tool that prints a
+    table, its row names (profile_solve's up to their " (backend)"); for
+    multihost_eff the committed MULTIHOST_EFF.json's keys by level (its
+    rows' "round" names the TPU rig's measurement round and is left out)."""
+    import ast
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    if name == "multihost_eff":
+        with open(os.path.join(root, "MULTIHOST_EFF.json")) as f:
+            doc = json.load(f)
+        return {"": set(doc), **{k: set(doc[k][0]) - {"round"}
+                                 for k in ("results", "collective_accounting")}}
+    with open(os.path.join(root, "tools", f"{name}.py")) as f:
+        tree = ast.parse(f.read())
+    nodes = list(ast.walk(tree))
+    strings = lambda elts: {e.value for e in elts if isinstance(e, ast.Constant)}
+
+    def assigned(var):
+        return [n.value for n in nodes if isinstance(n, ast.Assign)
+                and any(isinstance(t, ast.Name) and t.id == var for t in n.targets)]
+
+    if name == "latency_decomp":
+        (d,) = assigned("report")
+        return strings(d.keys)
+    if name == "consensus_collective_bench":
+        (d,) = [n for n in nodes if isinstance(n, ast.Dict) and "metric" in strings(n.keys)]
+        return strings(d.keys)
+    if name == "profile_kernel_stages":
+        (d,) = assigned("names")
+        return strings(d.values)
+    if name == "profile_solve":
+        (rows,) = assigned("rows")
+        first = [t.elts[0] for t in rows.elts]
+        return {(e.value if isinstance(e, ast.Constant) else e.values[0].value).split(" (")[0]
+                for e in first}
+    if name == "profile_pscan":
+        return {t.elts[0].value for t in nodes if isinstance(t, ast.Tuple) and len(t.elts) == 2
+                and isinstance(t.elts[0], ast.Constant) and isinstance(t.elts[1], ast.Attribute)}
+    raise ValueError(name)
+
+
+def run_tool(name, argv, fresh=False):
+    """``indy7_mpc_tpu_torch.tools.<name>.main(argv)`` in this process, or
+    with ``fresh`` as ``python3 -m`` in a process of its own, its output
+    printed; returns (its JSON lines, seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    module = f"indy7_mpc_tpu_torch.tools.{name}"
+    t0 = time.perf_counter()
+    if fresh:
+        proc = subprocess.run([sys.executable, "-m", module, *argv], capture_output=True,
+                              text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        rc, out = proc.returncode, proc.stdout
+        check(rc == 0, f"{name} exited with {rc}: {proc.stderr[-2000:]}")
+    else:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = importlib.import_module(module).main(argv)
+        out = buf.getvalue()
+    seconds = time.perf_counter() - t0
+    print(out, end="", flush=True)
+    check(rc == 0, f"{name} returned {rc}")
+    lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    check(lines, f"{name}: no JSON line")
+    return lines, seconds
+
+
+def phase_tools(dev, k1_ms):
+    """Phase 14: the diagnostic tools through their main() on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.config import PERTURBED_PLANT, CostConfig, SQPConfig
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.mpc import fused_tick
+    from indy7_mpc_tpu_torch.runtime import InProcessPlant, run_control_loop
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
+    from indy7_mpc_tpu_torch.parallel.sharding import consensus_bytes
+    from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
+
+    seconds, summary = {}, {}
+
+    def keys_hold(name, have, want):
+        check(want <= set(have), f"{name}: misses the TPU tool's {sorted(want - set(have))}")
+
+    with tempfile.TemporaryDirectory(prefix="indy7_tools_") as out:
+        reset_counts()
+        (lat,), seconds["latency_decomp"] = run_tool("latency_decomp", [
+            "--ticks", str(TOOLS_TICKS), "--out", os.path.join(out, "LATENCY_TORCH.md")])
+        launches = read_counts()
+        keys_hold("latency_decomp", lat, tpu_tool_keys("latency_decomp"))
+        block = lat["solve_block_us"]["p50"]
+        check(lat["solve_device_us"] <= block,
+              f"solve_device {lat['solve_device_us']} us above solve_block {block} us")
+        check(lat["null_rtt_us"]["p50"] < block,
+              f"null_rtt {lat['null_rtt_us']['p50']} us not below solve_block {block} us")
+        for kind in ("library_builds_or_loads", "allocator_segments", "alloc_retries"):
+            check(lat[f"{kind}_during_loop"] == 0,
+                  f"latency_decomp: {lat[f'{kind}_during_loop']} {kind} after the loop's first tick")
+        check(lat["loop_tick_us"]["p50"] < 10_000,
+              f"the loop's tick p50 {lat['loop_tick_us']['p50']} us is over the 10 ms period")
+        summary["latency_decomp"] = {k: lat[k] for k in (
+            "null_rtt_us", "fetch_rtt_us", "solve_device_us", "solve_device_host_ahead",
+            "solve_pipelined_us", "solve_block_us", "tick_block_us", "host_residual_us",
+            "tick_device_launches", "tick_device_ms", "loop_tick_us", "compiles_during_loop")}
+
+        # K1 on the tool's inputs, and K2 in one on_state, against their
+        # plain versions.
+        model = indy7(torch.float32, dev)
+        cost, sqp = CostConfig(), SQPConfig(max_iters=SQP_ITERS)
+        xs, goals, X, U, w = measure.production_inputs(dev, B, N)
+        lane = lambda t: t.permute(*range(1, t.dim()), 0).contiguous()
+        args = (lane(xs), lane(goals), lane(X), lane(U))
+        sm = LR.static_model(model)
+        k1_err = check_k1_call("K1 on latency_decomp's inputs",
+                               sqp_solve(sm, cost, sqp, DT, *args, wrench=lane(w)),
+                               solve_lane_major(sm, cost, sqp, DT, *args, wrench=lane(w)))
+        ctl = measure.runtime_controller(dev)
+        plant = InProcessPlant(model, initial_state(dev), DT, plant_cfg=PERTURBED_PLANT)
+        loop = lambda ticks: run_control_loop(ctl, plant, duration=1e9, realtime=False,
+                                              max_ticks=ticks)
+        loop(20)  # the tick after 20 of the tool's loop
+        calls, inner = [], fused_tick.tick_epilogue
+
+        def spy(*a, **kw):
+            calls.append((a, kw))
+            return inner(*a, **kw)
+
+        fused_tick.tick_epilogue = spy
+        try:
+            loop(1)
+        finally:
+            fused_tick.tick_epilogue = inner
+        check(len(calls) == 1, f"one on_state called K2 {len(calls)} times")
+        (a, kw), = calls
+        k2_best, k2_err = check_k2_call("K2 in one on_state", a[0], a[1], a[2], a[4:],
+                                        plant=kw.get("plant", True))
+        print(f"tools: K1 on latency_decomp's inputs max abs err {k1_err:.3e}; K2 in one "
+              f"on_state max abs err {k2_err:.3e} (winner {k2_best})", flush=True)
+
+        reset_counts()
+        (stg,), seconds["profile_kernel_stages"] = run_tool("profile_kernel_stages",
+                                                            [str(B), str(N)])
+        # The trace in a process of its own, as a user takes it: in this
+        # process, after the profiler sessions of phases 9 and 11, a trace
+        # once held no kernel event (the same call in a fresh process did).
+        (slv,), seconds["profile_solve"] = run_tool("profile_solve", [
+            str(B), str(N), "--backend", "cuda", "--trace", os.path.join(out, "trace")],
+            fresh=True)
+        (psc,), seconds["profile_pscan"] = run_tool("profile_pscan", [
+            str(B), str(N), "--chain", str(PSCAN_CHAIN)])
+        tools_launches = read_counts()
+        launches = {k: launches[k] + tools_launches[k] for k in launches}
+
+        check({r["name"] for r in stg["rows"]} == tpu_tool_keys("profile_kernel_stages"),
+              "profile_kernel_stages: rows are not the TPU tool's")
+        cum = [r["us"] for r in stg["rows"]]
+        check(all(b >= (1 - STAGE_SLACK) * a for a, b in zip(cum, cum[1:])),
+              f"profile_kernel_stages: cumulative us decrease: {cum}")
+        check(abs(cum[-1] - k1_ms * 1e3) <= STAGE_GATE * k1_ms * 1e3,
+              f"stages<=4 {cum[-1]:.1f} us not within {STAGE_GATE:.0%} of phase 3's K1 "
+              f"{k1_ms * 1e3:.1f} us")
+        check({r["stage"].split(" (")[0] for r in slv["rows"]} == tpu_tool_keys("profile_solve"),
+              "profile_solve: rows are not the TPU tool's")
+        check(slv["trace"] is not None and os.path.exists(slv["trace"]),
+              "profile_solve: no trace file")
+        with open(slv["trace"]) as f:
+            check("sqp_kernel" in f.read(), "profile_solve: the trace names no sqp_kernel")
+        check({r["backend"] for r in psc["rows"]} == tpu_tool_keys("profile_pscan"),
+              "profile_pscan: rows are not the TPU tool's")
+        outs = [r["out_mean_abs"] for r in psc["rows"]]
+        check(np.isfinite(outs).all() and abs(outs[0] - outs[1]) <= 1e-5 * abs(outs[0]),
+              f"profile_pscan: the two backends' chains end apart: {outs}")
+        summary.update(profile_kernel_stages=cum, profile_solve=slv["rows"],
+                       profile_pscan=psc["rows"])
+
+        (cons,), seconds["consensus_collective_bench"] = run_tool(
+            "consensus_collective_bench", [])
+        keys_hold("consensus_collective_bench", cons, tpu_tool_keys("consensus_collective_bench"))
+        check(cons["bytes_per_tick"] == consensus_bytes(cons["B"], cons["N"]),
+              f"consensus bench: {cons['bytes_per_tick']} bytes, want "
+              f"consensus_bytes = {consensus_bytes(cons['B'], cons['N'])}")
+        summary["consensus_collective_bench"] = cons
+
+        eff_path = os.path.join(out, "MULTIHOST_EFF_TORCH.json")
+        _, seconds["multihost_eff"] = run_tool("multihost_eff", [
+            "--procs", "2", "--ticks", str(TOOLS_EFF_TICKS), "--out", eff_path])
+        with open(eff_path) as f:
+            eff = json.load(f)
+        want = tpu_tool_keys("multihost_eff")
+        keys_hold("multihost_eff", eff, want[""])
+        for level in ("results", "collective_accounting"):
+            for row in eff[level]:
+                keys_hold(f"multihost_eff {level}", row, want[level])
+        for row in eff["results"]:
+            check(row["consensus_match"], f"multihost_eff at {row['procs']} ranks: the "
+                  "winner differs from one rank's")
+        summary["multihost_eff"] = {k: eff[k] for k in ("results", "weak_scaling", "notes")}
+    print(f"tools: seconds {json.dumps(seconds)}; launches in this process {launches}",
+          flush=True)
+    summary["seconds"] = seconds
+    return launches, summary
+
+
 def main():
     try:
         import torch
@@ -1502,7 +1739,9 @@ def main():
     phases["qp_backends"], qp = timed("qp_backends", phase_qp_backends, dev, loop9)
     phases["sharded"], sharded = timed("sharded", phase_sharded, dev)
     phases["recorded_runs"], recorded = timed("recorded_runs", phase_recorded_runs, dev)
+    phases["tools"], tools = timed("tools", phase_tools, dev, kernels[0]["ms"])
     print("phase seconds: " + json.dumps(seconds), flush=True)
+    print("tools: " + json.dumps(tools), flush=True)
     print("recorded_runs: " + json.dumps(recorded), flush=True)
     print("readable: " + json.dumps(readable), flush=True)
     print("qp_backends: " + json.dumps(qp), flush=True)

@@ -97,6 +97,7 @@ import numpy as np
 import torch
 
 from .config import PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig
+from .examples.protocol import synchronize
 from .models import indy7
 from .mpc import init_loop_carry, make_fused_loop_tick, reference
 from .ops import lane_rbd as LR
@@ -125,10 +126,12 @@ K1_SWEEP = [(64, 64, 2), (64, 64, 1), (64, 32, 2), (256, 64, 2),
 SLEEP_CYCLES = 100_000_000
 
 
-def _events_ms(fn, reps):
-    """Mean device ms per call of ``fn`` over ``reps`` calls (CUDA events),
-    after a warm-up.  The calls queue behind a device sleep, so a launch
-    whose host side takes longer than its kernel is timed by the kernel."""
+def queued_events(fn, reps):
+    """(mean device ms per call of ``fn`` over ``reps`` calls by CUDA events,
+    whether the host had queued every call before the first ran), after a
+    warm-up.  The calls queue behind a device sleep, so while the host
+    keeps ahead of the sleep a launch whose host side takes longer than its
+    kernel is timed by the kernel; the second value says whether it did."""
     fn()  # warm up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -137,8 +140,46 @@ def _events_ms(fn, reps):
     for _ in range(reps):
         fn()
     end.record()
+    host_ahead = not start.query()  # the sleep still runs
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ahead
+
+
+def _events_ms(fn, reps):
+    """Mean device ms per call of ``fn`` over ``reps`` calls (CUDA events,
+    :func:`queued_events`)."""
+    return queued_events(fn, reps)[0]
+
+
+def blocking_us(fn, reps, dev, warmup=3):
+    """Host-clock microseconds of each of ``reps`` calls of ``fn``, each
+    followed by a sync of ``dev``, after ``warmup`` calls: what a caller
+    that waits for every result pays."""
+    for _ in range(warmup):
+        fn()
+        synchronize(dev)
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        synchronize(dev)
+        out.append((time.perf_counter() - t0) * 1e6)
+    return np.asarray(out)
+
+
+def pipelined_ms(fn, reps, dev, warmup=2):
+    """Mean host-clock ms per call of ``fn`` over ``reps`` calls queued back
+    to back, from the first call to a sync of ``dev`` after the last, after
+    ``warmup`` calls: the module call plus a sync, as a JAX tool times a
+    jitted call."""
+    for _ in range(warmup):
+        fn()
+    synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def k1_inputs(dev, B, N, seed=11):
@@ -151,6 +192,22 @@ def k1_inputs(dev, B, N, seed=11):
     args = (f32(rng.normal(size=(12, B)) * 0.05), f32(rng.normal(size=(N, 3, B)) * 0.3),
             f32(rng.normal(size=(N, 12, B)) * 0.05), f32(rng.normal(size=(N - 1, 6, B)) * 0.5))
     return args, f32(w)
+
+
+def production_inputs(dev, B, N):
+    """The TPU tools' B-major solve inputs (tools/latency_decomp.py,
+    tools/profile_solve.py): xs (B, 12), X (B, N, 12) and U (B, N-1, 6)
+    zero, goals (B, N, 3) all at [0.35, 0.35, 0.6], and the wrench
+    hypotheses (B, 6) of ``init_wrench_batch`` (sigma 20 N, generator seed
+    42); float32 on ``dev``."""
+    from .mpc.sampled import init_wrench_batch
+
+    gen = torch.Generator(device=dev).manual_seed(42)
+    wrench = init_wrench_batch(gen, SampleConfig(batch_size=B, f_ext_std=20.0), torch.float32,
+                               dev)
+    goals = torch.tensor([0.35, 0.35, 0.6], device=dev).expand(B, N, 3).contiguous()
+    return (torch.zeros((B, 12), device=dev), goals, torch.zeros((B, N, 12), device=dev),
+            torch.zeros((B, N - 1, 6), device=dev), wrench)
 
 
 def k1_sweep(dev, card, reps=20):
@@ -443,18 +500,19 @@ def qp_section(dev, B=64, N=64):
     return out
 
 
-def runtime_controller(dev):
+def runtime_controller(dev, B=64, N=64):
     """The controller of the host-dispatch goldens (examples/record_runs.py:
     B=64, N=64, 2 SQP iterations, fig-8 of 10 cycles after 200 rows of
-    padding, true wrench [-60, 20, -40] N) on ``dev``; constructing it runs
-    the warm-up tick."""
+    padding, true wrench [-60, 20, -40] N; tools/latency_decomp.py's) on
+    ``dev``, at B lanes and horizon N; constructing it runs the warm-up
+    tick."""
     ref = reference.with_padding(
         reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45],
                           period=10, dt=DT, cycles=10), 200)
     return SampledController(
         indy7(torch.float32), CostConfig(), SQPConfig(max_iters=2),
-        MPCConfig(N=64, dt=DT), SampleConfig(batch_size=64, f_ext_std=20.0,
-                                             f_ext_resample_std=1.0),
+        MPCConfig(N=N, dt=DT), SampleConfig(batch_size=B, f_ext_std=20.0,
+                                            f_ext_resample_std=1.0),
         ref, f_ext_actual=F_TRUE0[:3], device=dev,
     )
 
@@ -584,7 +642,8 @@ def _k2_times_at(root, reps):
     lines of its ``tick_kernel``)."""
     code = "\n".join([
         "import json, torch", f"SLEEP_CYCLES = {SLEEP_CYCLES}",
-        inspect.getsource(_events_ms), inspect.getsource(ptxas_lines),
+        inspect.getsource(queued_events), inspect.getsource(_events_ms),
+        inspect.getsource(ptxas_lines),
         inspect.getsource(k2_times),
         "from indy7_mpc_tpu_torch.ops.kernels import _build",
         f"t = k2_times({reps}, {DT!r}, {INIT_Q!r}, {F_TRUE0!r}, {K2_SWEEP!r})",

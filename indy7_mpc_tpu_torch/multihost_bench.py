@@ -162,8 +162,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(args) -> None:
-    """Spawn the workers on this machine and print rank 0's line."""
+def cards(procs: int, device: str) -> int:
+    """The cards ``procs`` ranks on ``device`` run on (rank r on
+    ``cuda:<r % device count>``; none on the CPU)."""
+    if device == "cpu":
+        return 0
+    from .mpc.lane_mesh import default_device
+
+    return len({default_device(r) for r in range(procs)})
+
+
+def launch(args) -> list:
+    """Spawn the workers on this machine, print rank 0's line (and with
+    ``--efficiency`` the efficiency line) and return them."""
     root = Path(__file__).resolve().parents[1]
 
     def run(procs):
@@ -194,21 +205,25 @@ def launch(args) -> None:
 
     multi = run(args.procs)
     print(json.dumps(multi), flush=True)
-    if args.efficiency:
-        single = run(1)
-        print(json.dumps({
-            "metric": "multiproc_scaling_efficiency",
-            "procs": args.procs, "device": args.device, "backend": args.backend,
-            "B": args.B, "N": args.N, "sqp_iters": args.sqp_iters,
-            "ticks": args.ticks, "chunk": args.chunk,
-            "value": multi["solves_per_sec"] / single["solves_per_sec"],
-            "single_proc_solves_per_sec": single["solves_per_sec"],
-            "multi_proc_solves_per_sec": multi["solves_per_sec"],
-            "consensus_match": multi["best_idx"] == single["best_idx"],
-        }), flush=True)
+    if not args.efficiency:
+        return [multi]
+    single = run(1)
+    eff = {
+        "metric": "multiproc_scaling_efficiency",
+        "procs": args.procs, "devices": args.procs, "cards": cards(args.procs, args.device),
+        "device": args.device, "backend": args.backend,
+        "B": args.B, "N": args.N, "sqp_iters": args.sqp_iters,
+        "ticks": args.ticks, "chunk": args.chunk,
+        "value": multi["solves_per_sec"] / single["solves_per_sec"],
+        "single_proc_solves_per_sec": single["solves_per_sec"],
+        "multi_proc_solves_per_sec": multi["solves_per_sec"],
+        "consensus_match": multi["best_idx"] == single["best_idx"],
+    }
+    print(json.dumps(eff), flush=True)
+    return [multi, eff]
 
 
-def main(argv=None):
+def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--coordinator", default="localhost:8476")
@@ -225,7 +240,11 @@ def main(argv=None):
     ap.add_argument("--timeout", type=float, default=3600.0)
     ap.add_argument("--efficiency", action="store_true",
                     help="also run one rank and print the ratio of solves/s")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     if args.worker:
         worker(args)
     else:

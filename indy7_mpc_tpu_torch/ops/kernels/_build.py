@@ -30,6 +30,12 @@ NVCC_FLAGS = (
 )
 
 
+# Kernel-library events in this process: nvcc builds and loads of the
+# library.  A tick that pays one of them stalls; tools/latency_decomp.py
+# counts them over a control loop.
+counts = {"builds": 0, "loads": 0}
+
+
 class KernelBuildError(RuntimeError):
     """The CUDA kernels could not be built or loaded."""
 
@@ -78,6 +84,7 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():  # built by another process while we waited
             return out
+        counts["builds"] += 1
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         compiles, link = nvcc_commands(nvcc, tmp)
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -113,6 +120,7 @@ ARGTYPES = {
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its C signatures."""
     lib = ctypes.CDLL(str(build()))
+    counts["loads"] += 1
     for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -106,9 +106,7 @@ def make_sharded_batch_solve(
     if backend == "kernel":
         from ..solvers import sqp_cuda
 
-        return lambda xs, g, X, U, w: sqp_cuda.batch_solve(
-            model, cost_cfg, sqp_cfg, dt, xs, g, X, U, wrench_world_batch=w
-        )
+        return sqp_cuda.batch_solve_fn(model, cost_cfg, sqp_cfg, dt)
     return sqp_mod.batch_solve_fn(model, cost_cfg, sqp_cfg, dt)
 
 

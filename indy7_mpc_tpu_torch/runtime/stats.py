@@ -65,6 +65,11 @@ class RunRecorder:
     # estimator-accuracy record the reference only ever printed to stdout
     # (gato_controller.py:252-256).  Saved only when ticks provided them.
     EXTRA_ARRAYS = ("f_est", "f_true")
+    # Device values held at most: every FLUSH_EVERY recorded tensors are
+    # fetched to the host in one transfer.  Holding every tick's tensor
+    # until the save grows the caching allocator with the run's length (a
+    # new segment after a few hundred ticks: a stall on that tick).
+    FLUSH_EVERY = 64
 
     def __init__(self, out_dir: str = "stats", save_interval: float = 35.0):
         self.out_dir = out_dir
@@ -73,6 +78,8 @@ class RunRecorder:
         self._data: Dict[str, List] = {
             k: [] for k in self.ARRAYS + self.EXTRA_ARRAYS
         }
+        self._held = 0  # tensors among the recorded values
+        self._fetched = dict.fromkeys(self._data, 0)  # values already on the host
 
     def record(
         self,
@@ -86,18 +93,24 @@ class RunRecorder:
         f_true=None,
     ) -> None:
         """Append one tick.  Array arguments may be tensors on a device:
-        they are stored raw and fetched in ONE bulk transfer at save time,
-        so recording never forces a per-tick device sync."""
+        they are stored raw and fetched FLUSH_EVERY at a time in one bulk
+        transfer, so recording never forces a per-tick device sync and the
+        device memory it holds stays bounded."""
         self._data["dts"].append(float(dt))
         self._data["tracking_errors"].append(float(tracking_error))
-        self._data["ee_positions"].append(ee_position)
-        self._data["ee_ref_positions"].append(ee_ref_position)
-        self._data["joint_positions"].append(joint_position)
         self._data["solve_times"].append(float(solve_time_us))
-        if f_est is not None:
-            self._data["f_est"].append(f_est)
-        if f_true is not None:
-            self._data["f_true"].append(f_true)
+        for name, v in (("ee_positions", ee_position), ("ee_ref_positions", ee_ref_position),
+                        ("joint_positions", joint_position), ("f_est", f_est),
+                        ("f_true", f_true)):
+            if v is not None or name in self.ARRAYS:
+                self._data[name].append(v)
+                self._held += isinstance(v, torch.Tensor)
+        if self._held >= self.FLUSH_EVERY:
+            for name, vals in self._data.items():
+                start = self._fetched[name]
+                vals[start:] = _host_values(vals[start:])
+                self._fetched[name] = len(vals)
+            self._held = 0
 
     def record_trace(self, trace, dts, solve_times_us) -> None:
         """Bulk-record a SampledTrace / TrackingTrace from a device run."""
@@ -134,17 +147,7 @@ class RunRecorder:
         device) are fetched in a single transfer, then everything is
         stacked.  joint_positions recorded as full states (q, v) are sliced
         to q."""
-        vals = list(self._data[name])
-        at = [i for i, v in enumerate(vals) if isinstance(v, torch.Tensor)]
-        if at:
-            flat = torch.cat([vals[i].detach().reshape(-1) for i in at])
-            host = _to_numpy(flat)  # the one transfer
-            offset = 0
-            for i in at:
-                n = vals[i].numel()
-                vals[i] = host[offset:offset + n].reshape(tuple(vals[i].shape))
-                offset += n
-        arr = np.asarray(vals)
+        arr = np.asarray(_host_values(self._data[name]))
         if name == "joint_positions" and arr.ndim == 2 and arr.shape[1] == 12:
             arr = arr[:, :6]
         return arr
@@ -177,6 +180,22 @@ class RunRecorder:
                 solve_time_us_max=float(st.max()),
             )
         return out
+
+
+def _host_values(vals: List) -> List:
+    """``vals`` with its tensors (on one device) fetched in a single
+    transfer."""
+    vals = list(vals)
+    at = [i for i, v in enumerate(vals) if isinstance(v, torch.Tensor)]
+    if at:
+        flat = torch.cat([vals[i].detach().reshape(-1) for i in at])
+        host = _to_numpy(flat)  # the one transfer
+        offset = 0
+        for i in at:
+            n = vals[i].numel()
+            vals[i] = host[offset:offset + n].reshape(tuple(vals[i].shape))
+            offset += n
+    return vals
 
 
 def _to_numpy(t) -> np.ndarray:

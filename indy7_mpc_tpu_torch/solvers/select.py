@@ -1,7 +1,7 @@
 """Production solver selection (port of ``solvers/select.py``).
 
 Kernel K1 covers the Gauss-Newton formulation with the Riccati backend:
-inside that coverage the default solvers are ``sqp_cuda.batch_solve`` and
+inside that coverage the default solvers are ``sqp_cuda.batch_solve_fn`` and
 ``sqp_cuda.single_solve_fn``, whose wrapper launches the kernel for CUDA
 tensors and runs its plain version for CPU tensors.  Every other
 configuration (``formulation="reference"``, or the QP backends "pcg",
@@ -66,9 +66,7 @@ def default_batch_solve_fn(
     if kernel_supports(cost_cfg, sqp_cfg):
         from . import sqp_cuda
 
-        return lambda xs, g, X, U, w: sqp_cuda.batch_solve(
-            model, cost_cfg, sqp_cfg, dt, xs, g, X, U, wrench_world_batch=w
-        )
+        return sqp_cuda.batch_solve_fn(model, cost_cfg, sqp_cfg, dt)
     if is_cuda_device(device):
         _warn_slow_path_on_cuda(cost_cfg, sqp_cfg)
     from . import sqp as sqp_mod

@@ -45,6 +45,33 @@ def batch_solve(
                   wrench_world_batch)
 
 
+def _static_models(model: RobotModel):
+    """``sm(X)``: the model constants for ``X``'s device and kernel dtype,
+    built once each (building them reads the model to the host)."""
+    static = {}
+
+    def sm(X):
+        key = (X.device, _kernel_dtype(X))
+        if key not in static:
+            static[key] = LR.static_model(model.to(device=key[0], dtype=key[1]))
+        return static[key]
+
+    return sm
+
+
+def batch_solve_fn(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    dt: float,
+):
+    """``(xs_b, goals_b, X_b, U_b, wrench_b) -> SQPResult``: :func:`batch_solve`
+    with the model constants built once per device and dtype, the signature
+    every tick takes its batched solver in."""
+    sm = _static_models(model)
+    return lambda xs, g, X, U, w: _solve(sm(X), cost_cfg, sqp_cfg, dt, xs, g, X, U, None, w)
+
+
 def single_solve_fn(
     model: RobotModel,
     cost_cfg: CostConfig,
@@ -56,15 +83,11 @@ def single_solve_fn(
     ``run_tracking_mpc``.  xs (12,), goals (N, 3), X (N, 12), U (N-1, 6),
     wrench_world (6,) or None; ``state.rho`` is a 0-d tensor, carried in
     and out.  The model constants are built once per device and dtype."""
-    static = {}
+    sm = _static_models(model)
 
     def fn(xs, goals, X, U, state=None, wrench_world=None):
-        dtype = _kernel_dtype(X)
-        key = (X.device, dtype)
-        if key not in static:
-            static[key] = LR.static_model(model.to(device=X.device, dtype=dtype))
         res = _solve(
-            static[key], cost_cfg, sqp_cfg, dt, xs[None], goals[None], X[None],
+            sm(X), cost_cfg, sqp_cfg, dt, xs[None], goals[None], X[None],
             U[None], None if state is None else SolverState(rho=state.rho.reshape(1)),
             None if wrench_world is None else wrench_world[None],
         )

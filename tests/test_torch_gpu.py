@@ -755,3 +755,30 @@ def test_device_recording_on_the_card_equals_run_sampled_mpc(cuda, tmp_path):
     np.testing.assert_array_equal(rec["dts"], np.full(ticks, DT))
     for a, b in zip(carry, final):
         assert torch.equal(a, b)
+
+
+def test_diagnostic_tools_on_the_card(cuda, tmp_path, capsys):
+    """``tools.latency_decomp`` and ``tools.profile_kernel_stages`` on the
+    card at B=8/N=8: the chained solve no slower than a blocking one, the
+    host ahead of it, no kernel-library build and no allocator growth after
+    the loop's first tick; the stage cut's four rows, each positive and
+    cumulative (5% slack)."""
+    import json
+
+    from indy7_mpc_tpu_torch.tools import latency_decomp, profile_kernel_stages
+
+    assert latency_decomp.main(["--B", "8", "--N", "8", "--ticks", "20",
+                                "--out", str(tmp_path / "lat.md")]) == 0
+    assert profile_kernel_stages.main(["8", "8", "--iters", "20"]) == 0
+    lat, stages = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+                   if line.startswith("{")]
+    assert lat["platform"] == "gpu" and lat["loop_ticks"] == 20
+    assert lat["solve_device_us"] <= lat["solve_block_us"]["p50"]
+    assert lat["solve_device_host_ahead"] is True
+    assert lat["tick_device_launches"] > 0 and lat["tick_device_ms"] > 0
+    for kind in ("library_builds_or_loads", "allocator_segments", "alloc_retries"):
+        assert lat[f"{kind}_during_loop"] == 0, kind
+    assert (tmp_path / "lat.md").read_text().count("\n| ") == 8  # header + 7 rows
+    us = [r["us"] for r in stages["rows"]]
+    assert [r["stages"] for r in stages["rows"]] == [1, 2, 3, 4] and us[0] > 0
+    assert all(b >= 0.95 * a for a, b in zip(us, us[1:])), us

@@ -237,6 +237,29 @@ def test_recorder_files_match_jax_recorder(tmp_path):
     assert port.summary() == ref.summary()
 
 
+def test_recorder_holds_a_bounded_number_of_tensors(tmp_path):
+    """Over more ticks than FLUSH_EVERY the recorder holds fewer than
+    FLUSH_EVERY tensors at any time, and its files equal the JAX
+    recorder's byte for byte."""
+    rng = np.random.default_rng(6)
+    port = RunRecorder(out_dir=str(tmp_path / "port"), save_interval=1e9)
+    ref = jrt.RunRecorder(out_dir=str(tmp_path / "jax"), save_interval=1e9)
+    held = lambda: sum(isinstance(v, torch.Tensor) for vals in port._data.values() for v in vals)
+    most = 0
+    for i in range(2 * RunRecorder.FLUSH_EVERY + 9):
+        x = rng.normal(size=12).astype(np.float32)
+        f_est = rng.normal(size=6).astype(np.float32)
+        common = (0.01, float(rng.uniform(0, 0.1)), rng.normal(size=3), rng.normal(size=3))
+        port.record(*common, torch.from_numpy(x), 100.0 + i, f_est=torch.from_numpy(f_est))
+        ref.record(*common, jnp.asarray(x), 100.0 + i, f_est=jnp.asarray(f_est))
+        most = max(most, held())
+    assert 0 < most < RunRecorder.FLUSH_EVERY
+    stems = port.save(), ref.save()
+    for name in RunRecorder.ARRAYS + ("f_est",):
+        a, b = (open(f"{s}_{name}.npy", "rb").read() for s in stems)
+        assert a == b, name
+
+
 def test_wire_bytes_match_jax_transport():
     sink = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     sink.bind(("127.0.0.1", 7562))

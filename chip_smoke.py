@@ -149,7 +149,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      non-decreasing (5% slack) with stages<=4 within 25% of phase 3's K1
      time; the trace file written and naming K1's kernel; the consensus
      bench's bytes those of consensus_bytes(B, N); the winners of
-     multihost_eff's ranks and of its one rank equal.
+     multihost_eff's ranks and of its one rank equal;
+ 15. the solve benchmarks: indy7_mpc_tpu_torch.bench.main() whole (B=64,
+     N=32 and 64, three repeats each), then examples/scale_bench.py's
+     main at N=32 (B=64-4,096) without and with --mesh (one rank a card
+     over NCCL, in a process of its own); the bench's one stdout JSON
+     line with bench.py's keys (read with ast), value finite and > 0,
+     min <= median <= max; K1 launched exactly 1 + R + 50 + 20R times a
+     measurement and K2 never, and each sweep 1 + reps a row; the bench's
+     first solve (from zeros) against K1's plain version at phase 3's
+     gates, and its last chained solve at the same X/U gate on every lane
+     (at the chain's fixed point float32 rounding decides whether a step
+     is taken: the lanes whose alphas differ are counted, not gated);
+     every sweep row finite with scale_bench.py's keys; on 256 lanes
+     spread over the B=4,096 batch, a solve of the sweep's inputs at
+     phase 3's gates and the sweep's last solve at the X/U gate; the
+     --mesh sweep's final X and U within the same gate of the
+     one-process sweep's (bit equality printed).
+     Printed: the card, both benches' lines, and the chain by CUDA events
+     beside the host clock.
 
 Each kernel's bound is the larger of its floating-point operations on
 the phase's inputs over 67 TFLOP/s and the bytes of its inputs and
@@ -168,9 +186,10 @@ The line before the last is the card's name and power limit, the one
 before it the kernels' JSON summary (``launches_by_phase`` has phase 11
 as ``qp_backends``, with 0 launches of each, phase 12 as ``sharded``,
 the launches of (a) and (b) summed over the ranks, and phase 13 as
-``recorded_runs``, both rows' launches summed, and phase 14 as ``tools``,
-the launches of this process: the ranks' are their own); the
-last line is {"ok": true, "device": {...}}.
+``recorded_runs``, both rows' launches summed, phase 14 as ``tools``,
+the launches of this process: the ranks' are their own, and phase 15 as
+``bench``, bench.main()'s, and ``scale_bench``, the one-process sweep's);
+the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -216,6 +235,9 @@ TRACKING_GATE, WRENCH_GATE = 1.25, 1.5
 # Phase 14: the tools' lengths and the stage profile's gates.
 TOOLS_TICKS, TOOLS_EFF_TICKS, PSCAN_CHAIN = 200, 100, 5
 STAGE_SLACK, STAGE_GATE = 0.05, 0.25
+# Phase 15: the sweep's horizon, and the lanes of its largest batch held
+# against K1's plain version.
+BENCH_SWEEP_N, BENCH_SWEEP_LANES = 32, 256
 
 
 class SmokeFailure(Exception):
@@ -293,20 +315,28 @@ def phase_sqp(dev):
             "stage_ms": stage_ms}
 
 
-def check_k1_call(label, k, p):
+def check_k1_call(label, k, p, converged=False):
     """K1's outputs ``k`` against its plain version's ``p`` on the same
     inputs (``sqp_solve``'s lane-major (X, U, rho, alphas, ...)) at phase
     3's gates: the line-search alphas equal on every lane, X and U finite
     and within 6e-3 after scaling each lane by max(1, max |value|).
-    Returns the max abs error."""
+    With ``converged`` (a solve at the fixed point of a long warm-started
+    chain, where accepting a step or not is decided by float32 rounding:
+    the kernel's step norm there is 0) the lanes whose alphas differ are
+    counted and printed instead, and X and U are held on every lane all
+    the same.  Returns the max abs error."""
     import numpy as np
     import torch
 
     torch.cuda.synchronize()
     k_alpha, p_alpha = k[3].cpu().numpy(), p[3].cpu().numpy()
     bad = np.nonzero((k_alpha != p_alpha).any(axis=0))[0]
-    check(bad.size == 0, f"{label} alphas differ on lanes {bad.tolist()}: "
-          f"kernel {k_alpha[:, bad].tolist()} plain {p_alpha[:, bad].tolist()}")
+    if converged:
+        print(f"{label}: alphas differ on {bad.size} of {k_alpha.shape[1]} lanes at the "
+              "chain's fixed point", flush=True)
+    else:
+        check(bad.size == 0, f"{label} alphas differ on lanes {bad.tolist()}: "
+              f"kernel {k_alpha[:, bad].tolist()} plain {p_alpha[:, bad].tolist()}")
     err = 0.0
     for a, b in ((k[0], p[0]), (k[1], p[1])):
         check(bool(torch.isfinite(a).all()), f"{label} output not finite")
@@ -1480,7 +1510,10 @@ def tpu_tool_keys(name):
     source with ast: the keys of its JSON line, or for a tool that prints a
     table, its row names (profile_solve's up to their " (backend)"); for
     multihost_eff the committed MULTIHOST_EFF.json's keys by level (its
-    rows' "round" names the TPU rig's measurement round and is left out)."""
+    rows' "round" names the TPU rig's measurement round and is left out).
+    ``bench`` reads bench.py (its JSON line's keys) and ``scale_bench``
+    examples/scale_bench.py (by line: "mesh", "row", "final" and
+    "final_row", a row in the final line)."""
     import ast
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1489,10 +1522,26 @@ def tpu_tool_keys(name):
             doc = json.load(f)
         return {"": set(doc), **{k: set(doc[k][0]) - {"round"}
                                  for k in ("results", "collective_accounting")}}
-    with open(os.path.join(root, "tools", f"{name}.py")) as f:
+    path = {"bench": "bench.py", "scale_bench": os.path.join("examples", "scale_bench.py")}.get(
+        name, os.path.join("tools", f"{name}.py"))
+    with open(os.path.join(root, path)) as f:
         tree = ast.parse(f.read())
     nodes = list(ast.walk(tree))
     strings = lambda elts: {e.value for e in elts if isinstance(e, ast.Constant)}
+    keyed = lambda key: [strings(n.keys) for n in nodes
+                         if isinstance(n, ast.Dict) and key in strings(n.keys)]
+
+    if name == "bench":
+        (keys,) = keyed("metric")
+        return keys
+    if name == "scale_bench":
+        (row,) = [{k.arg for k in n.keywords} for n in nodes if isinstance(n, ast.Call)
+                  and isinstance(n.func, ast.Name) and n.func.id == "dict"]
+        (added,) = [t.slice.value for n in nodes if isinstance(n, ast.Assign)
+                    for t in n.targets if isinstance(t, ast.Subscript)
+                    and isinstance(t.slice, ast.Constant)]
+        (mesh,), (final,) = keyed("mesh_devices"), keyed("sweep")
+        return {"mesh": mesh, "row": row, "final": final, "final_row": row | {added}}
 
     def assigned(var):
         return [n.value for n in nodes if isinstance(n, ast.Assign)
@@ -1518,13 +1567,28 @@ def tpu_tool_keys(name):
     raise ValueError(name)
 
 
+def json_lines(text):
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def capture_main(fn, argv):
+    """``fn(argv)`` with its stdout captured, then printed; returns (its
+    JSON lines, its return value)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return json_lines(buf.getvalue()), out
+
+
 def run_tool(name, argv, fresh=False):
     """``indy7_mpc_tpu_torch.tools.<name>.main(argv)`` in this process, or
     with ``fresh`` as ``python3 -m`` in a process of its own, its output
     printed; returns (its JSON lines, seconds)."""
-    import contextlib
     import importlib
-    import io
 
     module = f"indy7_mpc_tpu_torch.tools.{name}"
     t0 = time.perf_counter()
@@ -1532,17 +1596,14 @@ def run_tool(name, argv, fresh=False):
         proc = subprocess.run([sys.executable, "-m", module, *argv], capture_output=True,
                               text=True, timeout=600,
                               cwd=os.path.dirname(os.path.abspath(__file__)))
-        rc, out = proc.returncode, proc.stdout
-        check(rc == 0, f"{name} exited with {rc}: {proc.stderr[-2000:]}")
+        check(proc.returncode == 0, f"{name} exited with {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        print(proc.stdout, end="", flush=True)
+        lines, rc = json_lines(proc.stdout), 0
     else:
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = importlib.import_module(module).main(argv)
-        out = buf.getvalue()
+        lines, rc = capture_main(importlib.import_module(module).main, argv)
     seconds = time.perf_counter() - t0
-    print(out, end="", flush=True)
     check(rc == 0, f"{name} returned {rc}")
-    lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
     check(lines, f"{name}: no JSON line")
     return lines, seconds
 
@@ -1688,6 +1749,123 @@ def phase_tools(dev, k1_ms):
     return launches, summary
 
 
+def phase_bench(dev):
+    """Phase 15: the solve benchmarks through their main() on the card."""
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch import bench, measure
+    from indy7_mpc_tpu_torch.config import CostConfig, SQPConfig
+    from indy7_mpc_tpu_torch.examples import scale_bench
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.solvers import sqp_cuda
+    from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
+
+    sm = LR.static_model(indy7(torch.float32, dev))
+    cost, sqp = CostConfig(), SQPConfig(max_iters=bench.SQP_ITERS)
+    lane = lambda t: t.permute(*range(1, t.dim()), 0).contiguous()  # B-major to lane-major
+
+    def against_plain(label, solved, sel=None, converged=False):
+        """A B-major solve (its inputs, its SQPResult) against K1's plain
+        version on the same inputs, on the lanes ``sel`` (default all)."""
+        args, res = solved
+        pick = (lambda t: t) if sel is None else (lambda t: t.index_select(0, sel))
+        xs, goals, X, U, w = (lane(pick(t)) for t in args)
+        return check_k1_call(label, (lane(pick(res.X)), lane(pick(res.U)), None,
+                                     pick(res.stats.alphas).T),
+                             solve_lane_major(sm, cost, sqp, DT, xs, goals, X, U, wrench=w),
+                             converged)
+
+    summary, launches = {}, {}
+    t0 = time.perf_counter()
+    reset_counts()
+    lines, report = capture_main(bench.main, [])
+    launches["bench"] = read_counts()
+    seconds = {"bench": time.perf_counter() - t0}
+    per = 1 + bench.R + bench.DISPATCH_ITERS + bench.CHAIN_ITERS * bench.R
+    want = len(bench.HORIZONS) * bench.REPEATS * per
+    check(launches["bench"] == {"sqp_solve": want, "tick_epilogue": 0},
+          f"bench: launches {launches['bench']}, want K1 {want} ({per} a measurement), K2 0")
+    check(len(lines) == 1, f"bench printed {len(lines)} JSON lines on stdout, want 1")
+    (line,) = lines
+    check(set(line) == tpu_tool_keys("bench"),
+          f"bench: keys {sorted(line)} are not bench.py's {sorted(tpu_tool_keys('bench'))}")
+    check(bool(np.isfinite(line["value"])) and line["value"] > 0,
+          f"bench: value {line['value']}")
+    check(line["min"] <= line["median"] <= line["max"], f"bench: min/median/max {line}")
+    m = report["runs"][bench.HORIZONS[-1]][-1]
+    bench_err = max(against_plain("K1 in the bench's first solve", m.first),
+                    against_plain("K1 in the bench's last chained solve", m.last, converged=True))
+    chains = {}
+    for n, meas in report["runs"].items():
+        chains[n] = [{"host_us": m.chained_s * 1e6, "event_us": m.chain_event_s * 1e6,
+                      "host_ahead": m.host_ahead, "blocking_us": m.dispatch_s * 1e6}
+                     for m in meas]
+        print(f"bench N={n} on {report['device']}: the chain per solve by the host clock / by "
+              "CUDA events (host ahead) / blocking: " + "; ".join(
+                  f"{c['host_us']:.1f} / {c['event_us']:.1f} ({'yes' if c['host_ahead'] else 'no'})"
+                  f" / {c['blocking_us']:.1f} us" for c in chains[n]), flush=True)
+    summary["bench"] = {"line": line, "chains": chains, "k1_err": bench_err}
+
+    keys = tpu_tool_keys("scale_bench")
+    Bs, n_sweep = scale_bench.BS, str(BENCH_SWEEP_N)
+    want = sum(1 + scale_bench.default_reps(b) for b in Bs)
+    t0 = time.perf_counter()
+    reset_counts()
+    lines, (final, outs) = capture_main(scale_bench.main, [n_sweep])
+    launches["scale_bench"] = read_counts()
+    seconds["scale_bench"] = time.perf_counter() - t0
+    check(launches["scale_bench"] == {"sqp_solve": want, "tick_epilogue": 0},
+          f"scale_bench: launches {launches['scale_bench']}, want K1 {want}, K2 0")
+    check([set(x) for x in lines] == [keys["row"]] * len(Bs) + [keys["final"]],
+          f"scale_bench: lines {lines} lack examples/scale_bench.py's keys")
+    check(all(r["finite"] for r in final["sweep"]), f"scale_bench: a row not finite: {final}")
+    big = Bs[-1]
+    sel = torch.linspace(0, big - 1, BENCH_SWEEP_LANES, device=dev).round().long()
+    sweep_err = against_plain(f"K1 in the sweep's last solve at B={big}", outs[big], sel,
+                              converged=True)
+    fresh = measure.production_inputs(dev, big, BENCH_SWEEP_N)
+    sweep_err = max(sweep_err, against_plain(
+        f"K1 in a solve of the sweep's inputs at B={big}",
+        (fresh, sqp_cuda.batch_solve_fn(indy7(torch.float32, dev), cost, sqp, DT)(*fresh)), sel))
+
+    t0 = time.perf_counter()
+    lines, (mfinal, ranks) = capture_main(scale_bench.main, [n_sweep, "--mesh"])
+    seconds["scale_bench_mesh"] = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    check(lines[0] == {"mesh_devices": cards, "backend": "kernel-nccl"},
+          f"scale_bench --mesh: first line {lines[0]}")
+    check([set(x) for x in lines[1:]] == [keys["row"]] * len(Bs) + [keys["final"]],
+          f"scale_bench --mesh: lines {lines[1:]} lack examples/scale_bench.py's keys")
+    check(mfinal["sharded_mesh"] == cards and all(r["finite"] for r in mfinal["sweep"]),
+          f"scale_bench --mesh: {mfinal}")
+    for r in ranks:
+        check(r["launches"] == want, f"scale_bench --mesh rank {r['rank']}: {r['launches']} "
+              f"K1 launches, want {want}")
+    same_bits, mesh_err = True, 0.0
+    for b in Bs:
+        _, res = outs[b]
+        for name, got in (("X", ranks[0]["X"][b]), ("U", ranks[0]["U"][b])):
+            want_np = getattr(res, name).cpu().numpy()
+            lane_scale = np.maximum(np.abs(want_np).max(axis=(1, 2)), 1.0)[:, None, None]
+            err = float((np.abs(got - want_np) / lane_scale).max())
+            check(np.isfinite(got).all() and err <= 6e-3,
+                  f"scale_bench --mesh B={b}: {name} scaled error {err:.3e} > 6e-3")
+            mesh_err = max(mesh_err, float(np.abs(got - want_np).max()))
+            same_bits &= bool(np.array_equal(got, want_np))
+    print(f"bench: K1 max abs err against the plain version {bench_err:.3e} (the bench's first "
+          f"and last chained solves), {sweep_err:.3e} (a solve of the sweep's inputs and its last "
+          f"solve at B={big}, on {BENCH_SWEEP_LANES} lanes); "
+          f"the --mesh sweep ({len(ranks)} rank(s), {lines[0]['backend']}) against the one-process sweep: max "
+          f"abs err {mesh_err:.3e}, the same bits: {same_bits}; seconds {json.dumps(seconds)}",
+          flush=True)
+    summary.update(scale_bench=final["sweep"], scale_bench_mesh=mfinal["sweep"],
+                   k1_err_sweep=sweep_err, mesh_err=mesh_err, mesh_same_bits=same_bits,
+                   seconds=seconds)
+    return launches["bench"], launches["scale_bench"], summary
+
+
 def main():
     try:
         import torch
@@ -1740,7 +1918,9 @@ def main():
     phases["sharded"], sharded = timed("sharded", phase_sharded, dev)
     phases["recorded_runs"], recorded = timed("recorded_runs", phase_recorded_runs, dev)
     phases["tools"], tools = timed("tools", phase_tools, dev, kernels[0]["ms"])
+    phases["bench"], phases["scale_bench"], benches = timed("bench", phase_bench, dev)
     print("phase seconds: " + json.dumps(seconds), flush=True)
+    print("bench: " + json.dumps(benches), flush=True)
     print("tools: " + json.dumps(tools), flush=True)
     print("recorded_runs: " + json.dumps(recorded), flush=True)
     print("readable: " + json.dumps(readable), flush=True)

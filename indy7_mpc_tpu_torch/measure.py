@@ -126,13 +126,15 @@ K1_SWEEP = [(64, 64, 2), (64, 64, 1), (64, 32, 2), (256, 64, 2),
 SLEEP_CYCLES = 100_000_000
 
 
-def queued_events(fn, reps):
+def queued_events(fn, reps, warmup=True):
     """(mean device ms per call of ``fn`` over ``reps`` calls by CUDA events,
     whether the host had queued every call before the first ran), after a
-    warm-up.  The calls queue behind a device sleep, so while the host
-    keeps ahead of the sleep a launch whose host side takes longer than its
-    kernel is timed by the kernel; the second value says whether it did."""
-    fn()  # warm up
+    warm-up call unless ``warmup`` is false.  The calls queue behind a
+    device sleep, so while the host keeps ahead of the sleep a launch whose
+    host side takes longer than its kernel is timed by the kernel; the
+    second value says whether it did."""
+    if warmup:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     torch.cuda._sleep(SLEEP_CYCLES)

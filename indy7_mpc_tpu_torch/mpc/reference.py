@@ -40,3 +40,16 @@ def figure8(A_x, A_z, offset, period, dt, cycles) -> np.ndarray:
 def with_padding(ref: np.ndarray, pad_steps: int) -> np.ndarray:
     """Prepend ``pad_steps`` copies of the first point."""
     return np.concatenate([np.tile(ref[:1], (pad_steps, 1)), ref], axis=0)
+
+
+def flatten6(ref: np.ndarray) -> np.ndarray:
+    """(T, 3) -> flat [x, y, z, 0, 0, 0] * T (the reference's wire format)."""
+    out = np.zeros((ref.shape[0], 6))
+    out[:, :3] = ref
+    return out.reshape(-1)
+
+
+def goal_window(ref: np.ndarray, offset: int, N: int) -> np.ndarray:
+    """The N-knot goal window at ``offset``: ``ref[offset : offset + N]``,
+    unclamped (shorter past the end)."""
+    return ref[offset : offset + N]

@@ -139,6 +139,11 @@ class SampledController:
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
 
+    def goal_window(self) -> torch.Tensor:
+        """The (N, 3) goal window at the current offset ``int(ref_offset)``,
+        clamped to the reference's last N rows as the tick clamps it."""
+        return reference_window(self._tick.ref_traj, int(self.ref_offset), self.mpc_cfg.N)
+
     def on_state(self, x_obs, elapsed: float):
         """One control tick; returns (u, info dict).
 

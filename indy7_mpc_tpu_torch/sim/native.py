@@ -106,6 +106,12 @@ def build_dir() -> Path:
     return BUILD_DIR / h.hexdigest()[:16]
 
 
+def available() -> bool:
+    """Whether the shared library of the current sources is built (under
+    :func:`build_dir`); builds nothing."""
+    return (build_dir() / LIB_NAME).exists()
+
+
 def _run(cmd, cwd):
     proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -782,3 +782,48 @@ def test_diagnostic_tools_on_the_card(cuda, tmp_path, capsys):
     us = [r["us"] for r in stages["rows"]]
     assert [r["stages"] for r in stages["rows"]] == [1, 2, 3, 4] and us[0] > 0
     assert all(b >= 0.95 * a for a, b in zip(us, us[1:])), us
+
+
+def test_solve_benchmarks_on_the_card(cuda):
+    """``bench.measure`` at B=64/N=8 with fewer solves, and
+    ``scale_bench.sweep`` at N=8 over B=64 and 256 with 2 timed solves:
+    the device figures present, the host ahead of the event-timed chain,
+    K1 launched 1 + R + blocking + chains x R and 1 + reps a row, every row
+    finite with ``examples/scale_bench.py``'s keys.  Against K1's plain
+    version at tests/test_pallas_kernel.py's scaled 6e-3: the bench's
+    first solve (from zeros) with the line-search alphas equal, and the
+    last solve of the bench's chain and of each sweep row on X and U
+    alone (near the chain's fixed point float32 rounding decides whether
+    a step is taken)."""
+    import chip_smoke
+    from indy7_mpc_tpu_torch import bench
+    from indy7_mpc_tpu_torch.examples import scale_bench
+
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    lane = lambda t: t.permute(*range(1, t.dim()), 0).contiguous()
+
+    def against_plain(args, res, alphas=False):
+        xs, goals, X, U, w = (lane(t) for t in args)
+        p = solve_lane_major(sm, COST, SQP, DT, xs, goals, X, U, wrench=w)
+        if alphas:
+            np.testing.assert_array_equal(res.stats.alphas.T.cpu().numpy(), p[3].cpu().numpy())
+        for got, want in ((lane(res.X), p[0]), (lane(res.U), p[1])):
+            scale = want.abs().amax(dim=(0, 1)).clamp(min=1.0)
+            assert ((got - want).abs() / scale).max().item() <= 6e-3
+
+    before = sqp_solve.launches
+    m = bench.measure(64, 8, cuda, reps=4, dispatch_iters=5, chain_iters=3)
+    assert sqp_solve.launches - before == 1 + 4 + 5 + 3 * 4
+    assert m.chained_s > 0 and m.dispatch_s > 0 and m.chain_event_s > 0 and m.host_ahead
+    against_plain(*m.first, alphas=True)
+    against_plain(*m.last)
+
+    before = sqp_solve.launches
+    final, last = scale_bench.sweep(cuda, N=8, Bs=(64, 256), reps=2)
+    assert sqp_solve.launches - before == 2 * (1 + 2)
+    keys = chip_smoke.tpu_tool_keys("scale_bench")
+    assert set(final) == keys["final"] and final["sharded_mesh"] is None
+    for row in final["sweep"]:
+        assert set(row) == keys["final_row"] and row["finite"] and row["us_per_batch"] > 0
+    for args, res in last.values():
+        against_plain(args, res)

@@ -30,7 +30,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      recorded finite, last-100 tracking under 0.2 m, wrench-estimate error
      p50 under 50 N; then K2 as the consensus (B=64, the plant step
      skipped: x_next None on both sides) and as the plant step (B=1)
-     against its plain version at phase 4's tolerances;
+     against its plain version at phase 4's tolerances, and the readable
+     plant's make_plant_step(PERTURBED_PLANT) in f32 on the card on that
+     plant step's state, control, true wrench and normals against K2's
+     x_next at phase 4's x_next atol 2e-3 (no launch);
   7. the runtime over UDP: the native plant built from native/plant by the
      port (sim/native.py), plant_node with the perturbed plant's flags in
      real time (--realtime-scale 1: the controller tick fits the 10 ms
@@ -406,6 +409,12 @@ def check_k2_call(label, smc, smp, cfg, args, plant=True):
     rtol 1e-3 / atol 1e-5, x_next atol 2e-3 (None on both sides with
     ``plant=False``), u and f_est to rtol 1e-7, eep atol 1e-5.  Returns
     (winner, max abs error)."""
+    k, err = k2_against_plain(label, smc, smp, cfg, args, plant)
+    return int(k.best), err
+
+
+def k2_against_plain(label, smc, smp, cfg, args, plant=True):
+    """:func:`check_k2_call`, returning K2's outputs and the max abs error."""
     import numpy as np
     import torch
 
@@ -434,7 +443,7 @@ def check_k2_call(label, smc, smp, cfg, args, plant=True):
     for f in fields:
         check(bool(torch.isfinite(getattr(k, f)).all()), f"{label}: {f} not finite")
     err = max((getattr(k, f) - getattr(p, f)).abs().max().item() for f in fields)
-    return int(k.best), err
+    return k, err
 
 
 def phase_main_path(dev):
@@ -531,6 +540,7 @@ def phase_runtime_inprocess(dev):
     from indy7_mpc_tpu_torch.mpc.fused_tick import consensus_args
     from indy7_mpc_tpu_torch.runtime import InProcessPlant, RunRecorder, run_control_loop
     from indy7_mpc_tpu_torch.sim.kernel_plant import kernel_plant_args
+    from indy7_mpc_tpu_torch.sim.readable_plant import make_plant_step
 
     reset_counts()
     t0 = time.perf_counter()
@@ -563,13 +573,22 @@ def phase_runtime_inprocess(dev):
     U0_T = 3.0 * torch.randn((6, ctl.f_batch.shape[0]), generator=gen, device=dev)
     best, c_err = check_k2_call("K2 as the consensus", smc, smc, None, consensus_args(
         plant.x, ctl.x_last, ctl.u_last, ctl.f_batch.T.contiguous(), U0_T), plant=False)
-    noise = PERTURBED_PLANT.torque_noise_std * torch.randn(
-        (PERTURBED_PLANT.substeps, 6), generator=gen, device=dev)
-    _, p_err = check_k2_call("K2 as the plant step", plant._sm_nominal, plant._sm,
-                             PERTURBED_PLANT, kernel_plant_args(
-                                 plant.x, ctl.u_last, plant.wrench, noise))
+    normals = torch.randn((PERTURBED_PLANT.substeps, 6), generator=gen, device=dev)
+    k2, p_err = k2_against_plain("K2 as the plant step", plant._sm_nominal, plant._sm,
+                                 PERTURBED_PLANT, kernel_plant_args(
+                                     plant.x, ctl.u_last, plant.wrench,
+                                     PERTURBED_PLANT.torque_noise_std * normals))
+    # The readable plant's public step on the same tick, against K2's.
+    _, step_fn = make_plant_step(indy7(torch.float32, dev), PERTURBED_PLANT)
+    x_next = step_fn(plant.x, ctl.u_last, plant.wrench, normals, DT)
+    check(bool(torch.isfinite(x_next).all()), "make_plant_step: x_next not finite")
+    mps_err = (x_next - k2.x_next.reshape(x_next.shape)).abs().max().item()
+    check(mps_err <= 2e-3, f"make_plant_step vs K2's plant step: max abs err {mps_err:.3e} "
+          f"> 2e-3")
     print(f"K2 as the consensus B={U0_T.shape[1]}: winner {best}, max abs err {c_err:.3e}; "
-          f"as the perturbed plant's step B=1: max abs err {p_err:.3e}", flush=True)
+          f"as the perturbed plant's step B=1: max abs err {p_err:.3e}; "
+          f"make_plant_step(PERTURBED_PLANT) f32 vs K2's x_next: max abs err {mps_err:.3e}",
+          flush=True)
     return launches
 
 

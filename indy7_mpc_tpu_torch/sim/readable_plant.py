@@ -5,9 +5,12 @@ The readable tick's plant and consensus (``mpc/readable_tick.py``), as the
 TPU package's readable tick runs them: RK4 substeps of ``dynamics/`` with
 the wrench re-mapped per substep, effort clamping, friction, actuation
 noise and joint stops.  ``sim/plant.py`` holds the same plant on the
-lane-major engine, the plain version of kernel K2; this one shares no
-code with it.  States broadcast over leading batch dims, ``(*b, 12)``.
-The actuation noise is drawn by the caller and passed in, scaled.
+lane-major engine, the plain version of kernel K2; this one shares only
+the plant configuration's model and friction with it
+(``perturb_model``, ``plant_friction``).  States broadcast over leading
+batch dims, ``(*b, 12)``.  The actuation noise is drawn by the caller and
+passed in: scaled to ``plant_step``, standard normal to the step of
+``make_plant_step``.
 """
 from __future__ import annotations
 
@@ -15,9 +18,11 @@ from typing import Optional
 
 import torch
 
+from ..config import PlantConfig
 from ..dynamics.integrators import rk4_step
 from ..dynamics.rnea import world_wrench_to_ee_joint
 from ..models.robot import RobotModel
+from .plant import perturb_model, plant_friction
 
 
 def apply_joint_limits(model: RobotModel, x, velocity_saturation: bool = False):
@@ -51,8 +56,8 @@ def plant_step(
 
     RK4 with ``substeps`` sub-intervals; the world wrench (*b, 6) is
     re-mapped to the EE joint frame at the start of each substep.  Torques
-    are clamped to the effort limits; ``noise`` (substeps, 6), already
-    scaled by its standard deviation, is added per substep; with
+    are clamped to the effort limits; ``noise`` (substeps, *u.shape),
+    already scaled by its standard deviation, is added per substep; with
     ``enforce_limits`` the joint stops follow every substep.
     """
     if clamp_torque:
@@ -67,6 +72,36 @@ def plant_step(
         if enforce_limits:
             x = apply_joint_limits(model, x, velocity_saturation)
     return x
+
+
+def make_plant_step(model: RobotModel, cfg: Optional[PlantConfig]):
+    """(plant_model, step_fn) for a PlantConfig.
+
+    ``plant_model`` is ``model`` perturbed by ``cfg`` (on its device and
+    dtype).  ``step_fn(x, u, wrench_world, normals, dt)`` advances one
+    control tick under it with the configured substeps, friction, velocity
+    saturation and actuation noise: ``normals`` (substeps, *u.shape) are
+    standard normal draws, scaled here by ``cfg.torque_noise_std``; with
+    ``normals=None`` or a zero standard deviation the step is noise-free.
+    With ``cfg=None`` it is the nominal single-RK4 plant.
+    """
+    if cfg is None:
+        cfg = PlantConfig()
+    pm = perturb_model(model, cfg)
+    friction = plant_friction(cfg)
+
+    def step_fn(x, u, wrench_world, normals, dt):
+        noisy = cfg.torque_noise_std > 0.0 and normals is not None
+        return plant_step(
+            pm, x, u, dt,
+            wrench_world=wrench_world,
+            substeps=cfg.substeps,
+            friction=friction,
+            noise=cfg.torque_noise_std * normals if noisy else None,
+            velocity_saturation=cfg.velocity_saturation,
+        )
+
+    return pm, step_fn
 
 
 def predict_next_states(model: RobotModel, x, u, dt: float, wrench_batch):

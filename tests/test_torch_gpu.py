@@ -38,6 +38,7 @@ from indy7_mpc_tpu_torch.runtime import (
 from indy7_mpc_tpu_torch.sim import native
 from indy7_mpc_tpu_torch.sim.kernel_plant import kernel_plant_args
 from indy7_mpc_tpu_torch.sim.plant import perturb_model, predict_next_states
+from indy7_mpc_tpu_torch.sim.readable_plant import make_plant_step
 from indy7_mpc_tpu_torch.solvers import sqp as readable
 from indy7_mpc_tpu_torch.solvers.sqp import SolverState
 from indy7_mpc_tpu_torch.solvers.sqp_cuda import single_solve_fn
@@ -401,6 +402,35 @@ def test_in_process_plant_on_the_card(cuda):
         xs[device.type] = plant.recv_state().x.cpu().numpy()
     assert np.isfinite(xs["cuda"]).all()
     np.testing.assert_allclose(xs["cuda"], xs["cpu"], atol=2e-3)
+
+
+def test_make_plant_step_on_the_card_matches_k2(cuda):
+    """The readable plant's make_plant_step(PERTURBED_PLANT) in f32 on the
+    card against K2's plant step on the same state, control, true wrench
+    and normals (x_next at phase 4's atol 2e-3; the step launches no
+    kernel), and in f64 on the card against f64 on the CPU."""
+    cfg = PERTURBED_PLANT
+    rng = np.random.default_rng(12)
+    x = np.r_[INIT_Q, 0.3 * rng.normal(size=6)]
+    u, normals = 5.0 * rng.normal(size=6), rng.normal(size=(cfg.substeps, 6))
+    model = indy7(torch.float32, cuda)
+    smc, smp = LR.static_model(model), LR.static_model(perturb_model(model, cfg))
+    t = lambda a: _f32(a, cuda)
+    before = tick_epilogue.launches
+    k2 = tick_epilogue(smc, smp, cfg, DT, *kernel_plant_args(
+        t(x), t(u), t(F_TRUE0), t(cfg.torque_noise_std * normals)))
+    assert tick_epilogue.launches == before + 1
+    _, step_fn = make_plant_step(model, cfg)
+    got = step_fn(t(x), t(u), t(F_TRUE0), t(normals), DT)
+    assert tick_epilogue.launches == before + 1 and got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), k2.x_next.reshape(12).cpu().numpy(), atol=2e-3)
+
+    f64 = {}
+    for device in (cuda, torch.device("cpu")):
+        _, step_fn = make_plant_step(indy7(torch.float64, device), cfg)
+        d = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+        f64[device.type] = step_fn(d(x), d(u), d(F_TRUE0), d(normals), DT).cpu().numpy()
+    np.testing.assert_allclose(f64["cuda"], f64["cpu"], rtol=0, atol=1e-9)
 
 
 def test_closed_loop_on_the_card_follows_the_cpu_loop(cuda):

@@ -18,9 +18,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      x_next atol 2e-3, u and f_est equal to rtol 1e-7, eep atol 1e-5);
      its threads and ptxas line printed;
   5. the main path: run_sampled_mpc on the card at the fig-8 configuration
-     (B=64, N=64, 2 SQP iterations, perturbed plant) for 500 ticks; the
-     trace must be finite, the mean tracking error of the last 100 ticks
-     below 0.2 m, and each kernel launched once per tick;
+     (B=64, N=64, 2 SQP iterations, perturbed plant) for 500 ticks, its
+     first tick eager and the rest replays of the tick's captured CUDA
+     graphs (mpc/graphed.py); the trace must be finite, the mean tracking
+     error of the last 100 ticks below 0.2 m, and each kernel launched
+     once per tick (each replay adds the launches its graph captured);
+     then the graphs against the eager loop (a Python loop over the same
+     tick module from the same seed): the main path's first 20 trace rows,
+     and a 20-tick run's trace, carry and generator state, bit for bit;
+     last, the eager and the graphed loop in turns at B = 64, 256 and
+     1,024 in runs of 100 ticks (measure.loop_modes): us a tick by CUDA
+     events and by the host clock, host-side launches a tick, device
+     kernels and device time a tick (torch.profiler) and the busy share;
+     the graphed loop must issue at most 2 host-side launches a tick;
   6. the runtime in process: SampledController and InProcessPlant(
      PERTURBED_PLANT) both on the card, run_control_loop without the wall
      clock, at the recorded host-dispatch configuration (B=64, N=64, 2 SQP
@@ -33,7 +43,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      against its plain version at phase 4's tolerances, and the readable
      plant's make_plant_step(PERTURBED_PLANT) in f32 on the card on that
      plant step's state, control, true wrench and normals against K2's
-     x_next at phase 4's x_next atol 2e-3 (no launch);
+     x_next at phase 4's x_next atol 2e-3 (no launch); last, the
+     controller tick graphed (on_state) and eager (its ControllerTick
+     called directly) in turns, 50 ticks each (measure.controller_timing):
+     p50/p95 by the host clock, host-side launches and device time;
   7. the runtime over UDP: the native plant built from native/plant by the
      port (sim/native.py), plant_node with the perturbed plant's flags in
      real time (--realtime-scale 1: the controller tick fits the 10 ms
@@ -124,7 +137,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      iterations, the perturbed plant, true wrench [-60, 20, -40] N with
      its walk), 3,500 ticks each, through the port's
      examples/record_runs.py::run_device_resident (chunks of 100 after a
-     warm-up chunk): K1 and K2 launched once a tick plus the warm-up
+     warm-up chunk that captures the tick's CUDA graphs; each chunk one
+     graph of 10 ticks replayed 10 times): K1 and K2 launched once a tick plus the warm-up
      chunk, all eight recorded arrays finite with 3,500 rows; on the
      next tick of each row K1 (all lanes) and K2 with the plant step
      against their plain versions at phase 3's and phase 4's gates; each
@@ -145,10 +159,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      MULTIHOST_EFF.json's keys); in latency_decomp solve_device <=
      solve_block, null_rtt < solve_block, no kernel-library build or load
      and no allocator growth after the loop's first tick, the loop's tick
-     p50 under the 10,000 us period; one K1 solve of the tool's inputs and
-     the K2 call of one on_state against their plain versions at phase 3's
-     and phase 4's gates (the on_state after 20 ticks of the tool's loop
-     against the perturbed plant); the stage profile's cumulative times
+     p50 under the 10,000 us period, on_state's host-side launches at most
+     5 (the input copy, the graph's launch with the generator's two
+     fills, the fetch) and its device work between one solve's device
+     time and its blocking tick (latency_decomp as python3 -m, in a
+     process of its own); one
+     K1 solve of the tool's inputs and the K2 call of the controller's
+     tick against their plain versions at phase 3's and phase 4's gates
+     (the eager ControllerTick on the controller's state after 20 ticks of
+     the tool's loop against the perturbed plant); the stage profile's cumulative times
      non-decreasing (5% slack) with stages<=4 within 25% of phase 3's K1
      time; the trace file written and naming K1's kernel; the consensus
      bench's bytes those of consensus_bytes(B, N); the winners of
@@ -192,6 +211,7 @@ the launches of (a) and (b) summed over the ranks, and phase 13 as
 ``recorded_runs``, both rows' launches summed, phase 14 as ``tools``,
 the launches of this process: the ranks' are their own, and phase 15 as
 ``bench``, bench.main()'s, and ``scale_bench``, the one-process sweep's);
+before those the eager and graphed timings of phases 5 and 6 (``graphs:``);
 the last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -201,6 +221,9 @@ import sys
 import time
 
 B, N, DT, SQP_ITERS, TICKS = 64, 64, 0.01, 2, 500
+# Phase 5: the graphed loop held against the eager one over GRAPH_TICKS
+# ticks; both timed at each of GRAPH_LANES in runs of GRAPH_CHUNK ticks.
+GRAPH_TICKS, GRAPH_LANES, GRAPH_CHUNK = 20, (64, 256, 1024), 100
 INIT_Q = [1.5799, 0.0631, -1.1807, 1.0927, -0.6255, -0.0190]
 F_TRUE0 = [-60.0, 20.0, -40.0, 0.0, 0.0, 0.0]
 UDP_TICKS, REALTIME_SCALE, UDP_PORTS = 300, 1, (7611, 7610)  # plant, controller
@@ -237,6 +260,10 @@ RECORDED_B, RECORDED_TICKS = (64, 1024), 3500
 TRACKING_GATE, WRENCH_GATE = 1.25, 1.5
 # Phase 14: the tools' lengths and the stage profile's gates.
 TOOLS_TICKS, TOOLS_EFF_TICKS, PSCAN_CHAIN = 200, 100, 5
+# The controller tick's host-side launches: the input copy, the graph's
+# launch and PyTorch's two fills of the generator's seed and offset, the
+# fetch.
+CONTROLLER_HOST_LAUNCHES = 5
 STAGE_SLACK, STAGE_GATE = 0.05, 0.25
 # Phase 15: the sweep's horizon, and the lanes of its largest batch held
 # against K1's plain version.
@@ -450,23 +477,23 @@ def phase_main_path(dev):
     import numpy as np
     import torch
 
+    from indy7_mpc_tpu_torch import measure
     from indy7_mpc_tpu_torch.config import (
         PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig,
     )
     from indy7_mpc_tpu_torch.models import indy7
-    from indy7_mpc_tpu_torch.mpc import run_sampled_mpc
+    from indy7_mpc_tpu_torch.mpc import init_loop_carry, make_loop_tick, run_sampled_mpc
 
     ref, x0 = fig8_reference(), initial_state(dev)
-    gen = torch.Generator(device=dev).manual_seed(42)
+    model = indy7(torch.float32, dev)
+    cfgs = (CostConfig(), SQPConfig(max_iters=SQP_ITERS), MPCConfig(N=N, dt=DT),
+            SampleConfig(batch_size=B, f_ext_std=20.0, f_ext_resample_std=1.0))
+    run = lambda ticks, gen: run_sampled_mpc(model, *cfgs, x0, ref, ticks, F_TRUE0, gen,
+                                             plant_cfg=PERTURBED_PLANT)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, trace = run_sampled_mpc(
-        indy7(torch.float32, dev), CostConfig(), SQPConfig(max_iters=SQP_ITERS),
-        MPCConfig(N=N, dt=DT), SampleConfig(batch_size=B, f_ext_std=20.0,
-                                            f_ext_resample_std=1.0),
-        x0, ref, TICKS, F_TRUE0, gen, plant_cfg=PERTURBED_PLANT,
-    )
+    _, trace = run(TICKS, torch.Generator(device=dev).manual_seed(42))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -478,12 +505,44 @@ def phase_main_path(dev):
             check(bool(torch.isfinite(v).all()), f"trace {name} not finite")
     te = trace.tracking_error.cpu().numpy().astype(np.float64)
     tail = te[-100:].mean()
-    print(f"main path run_sampled_mpc B={B} N={N} perturbed plant, {TICKS} ticks: "
-          f"{wall / TICKS * 1e6:.1f} us/tick (host clock, first tick included); "
-          f"tracking error mean {te.mean():.4f} m, p50 {np.percentile(te, 50):.4f} m, "
-          f"p95 {np.percentile(te, 95):.4f} m, last-100 mean {tail:.4f} m", flush=True)
+    print(f"main path run_sampled_mpc B={B} N={N} perturbed plant, {TICKS} ticks (the first "
+          f"eager, the rest replayed CUDA graphs): {wall / TICKS * 1e6:.1f} us/tick (host "
+          f"clock, first tick and the capture included); tracking error mean {te.mean():.4f} m, "
+          f"p50 {np.percentile(te, 50):.4f} m, p95 {np.percentile(te, 95):.4f} m, last-100 mean "
+          f"{tail:.4f} m", flush=True)
     check(tail < 0.2, f"last-100 tracking error {tail:.4f} m >= 0.2 m")
-    return launches
+
+    # The graphs against the eager loop over the same tick module: the main
+    # path's first GRAPH_TICKS rows, and a run of that length (its carry and
+    # the generator after it), bit for bit.
+    gen = torch.Generator(device=dev).manual_seed(42)
+    tick = make_loop_tick(model, *cfgs, torch.as_tensor(ref, dtype=torch.float32, device=dev),
+                          plant_cfg=PERTURBED_PLANT, generator=gen)
+    carry, rows = init_loop_carry(model, cfgs[2], cfgs[3], x0, F_TRUE0, gen), []
+    for _ in range(GRAPH_TICKS):
+        carry, row = tick(carry)
+        rows.append(row)
+    gen_g = torch.Generator(device=dev).manual_seed(42)
+    carry_g, trace_g = run(GRAPH_TICKS, gen_g)
+    for name, v in trace._asdict().items():
+        want = torch.stack([getattr(r, name) for r in rows])
+        check(torch.equal(v[:GRAPH_TICKS], want) and torch.equal(getattr(trace_g, name), want),
+              f"graphed trace {name} differs from the eager loop's in {GRAPH_TICKS} ticks")
+    for name, a, b in zip(carry._fields, carry_g, carry):
+        check(torch.equal(a, b), f"graphed carry {name} differs from the eager loop's")
+    check(torch.equal(gen_g.get_state(), gen.get_state()),
+          "the generator after the graphed ticks differs from the eager loop's")
+    print(f"graphed vs eager loop: trace, carry and generator state equal bit for bit over "
+          f"{GRAPH_TICKS} ticks", flush=True)
+
+    timing = {}
+    for lanes in GRAPH_LANES:
+        timing[lanes] = modes = measure.loop_modes(dev, lanes, GRAPH_CHUNK)
+        host = modes["graphed"]["host_launches_per_tick"]
+        check(0 < host <= 2, f"B={lanes}: the graphed loop issues {host:.2f} host-side launches "
+              f"a tick over {GRAPH_CHUNK} ticks, want (0, 2]")
+    print(f"device loop, eager against graphed: {card_line()}", flush=True)
+    return launches, timing
 
 
 def reset_counts():
@@ -589,7 +648,11 @@ def phase_runtime_inprocess(dev):
           f"as the perturbed plant's step B=1: max abs err {p_err:.3e}; "
           f"make_plant_step(PERTURBED_PLANT) f32 vs K2's x_next: max abs err {mps_err:.3e}",
           flush=True)
-    return launches
+    # The controller tick eager (its ControllerTick called directly) and
+    # graphed (on_state), in turns on a fresh controller.
+    timing = measure.controller_timing(dev)
+    print(f"controller tick, eager against graphed: {card_line()}", flush=True)
+    return launches, timing
 
 
 def phase_runtime_udp(dev):
@@ -1651,11 +1714,17 @@ def phase_tools(dev, k1_ms):
 
     with tempfile.TemporaryDirectory(prefix="indy7_tools_") as out:
         reset_counts()
+        # In a process of its own, as profile_solve below: in this process,
+        # after the profiler runs of phases 9-13, torch.profiler records
+        # none of K1's and K2's kernels (it once saw 30 of on_state's 50
+        # device kernels and copies, 42 us of its ~580 us), and the tick's
+        # split needs them.
         (lat,), seconds["latency_decomp"] = run_tool("latency_decomp", [
-            "--ticks", str(TOOLS_TICKS), "--out", os.path.join(out, "LATENCY_TORCH.md")])
+            "--ticks", str(TOOLS_TICKS), "--out", os.path.join(out, "LATENCY_TORCH.md")],
+            fresh=True)
         launches = read_counts()
         keys_hold("latency_decomp", lat, tpu_tool_keys("latency_decomp"))
-        block = lat["solve_block_us"]["p50"]
+        block, block_tick = lat["solve_block_us"]["p50"], lat["tick_block_us"]["p50"]
         check(lat["solve_device_us"] <= block,
               f"solve_device {lat['solve_device_us']} us above solve_block {block} us")
         check(lat["null_rtt_us"]["p50"] < block,
@@ -1665,10 +1734,21 @@ def phase_tools(dev, k1_ms):
                   f"latency_decomp: {lat[f'{kind}_during_loop']} {kind} after the loop's first tick")
         check(lat["loop_tick_us"]["p50"] < 10_000,
               f"the loop's tick p50 {lat['loop_tick_us']['p50']} us is over the 10 ms period")
+        # The tick's split: one input copy, the graph's launch with the
+        # generator's two fills, one fetch; the graph's device work inside
+        # the blocking tick.
+        check(0 < lat["tick_host_launches"] <= CONTROLLER_HOST_LAUNCHES,
+              f"on_state issues {lat['tick_host_launches']} host-side launches, want (0, "
+              f"{CONTROLLER_HOST_LAUNCHES}]")
+        device_us = lat["tick_device_ms"] * 1e3
+        check(lat["solve_device_us"] <= device_us <= block_tick,
+              f"on_state's device work {device_us:.1f} us not between one solve's "
+              f"{lat['solve_device_us']} us and its blocking tick {block_tick:.1f} us")
         summary["latency_decomp"] = {k: lat[k] for k in (
             "null_rtt_us", "fetch_rtt_us", "solve_device_us", "solve_device_host_ahead",
             "solve_pipelined_us", "solve_block_us", "tick_block_us", "host_residual_us",
-            "tick_device_launches", "tick_device_ms", "loop_tick_us", "compiles_during_loop")}
+            "tick_device_launches", "tick_host_launches", "tick_device_ms", "tick_host_us",
+            "loop_tick_us", "compiles_during_loop")}
 
         # K1 on the tool's inputs, and K2 in one on_state, against their
         # plain versions.
@@ -1683,9 +1763,9 @@ def phase_tools(dev, k1_ms):
                                solve_lane_major(sm, cost, sqp, DT, *args, wrench=lane(w)))
         ctl = measure.runtime_controller(dev)
         plant = InProcessPlant(model, initial_state(dev), DT, plant_cfg=PERTURBED_PLANT)
-        loop = lambda ticks: run_control_loop(ctl, plant, duration=1e9, realtime=False,
-                                              max_ticks=ticks)
-        loop(20)  # the tick after 20 of the tool's loop
+        run_control_loop(ctl, plant, duration=1e9, realtime=False, max_ticks=20)
+        # The next tick's K2 call: on_state replays a graph, so the eager
+        # ControllerTick runs that tick on the controller's state.
         calls, inner = [], fused_tick.tick_epilogue
 
         def spy(*a, **kw):
@@ -1694,15 +1774,17 @@ def phase_tools(dev, k1_ms):
 
         fused_tick.tick_epilogue = spy
         try:
-            loop(1)
+            ctl._tick(int(ctl.ref_offset + 1), plant.x, ctl.x_last, ctl.u_last, ctl.X_best,
+                      ctl.U_best, ctl.f_batch)
         finally:
             fused_tick.tick_epilogue = inner
-        check(len(calls) == 1, f"one on_state called K2 {len(calls)} times")
+        check(len(calls) == 1, f"one controller tick called K2 {len(calls)} times")
         (a, kw), = calls
-        k2_best, k2_err = check_k2_call("K2 in one on_state", a[0], a[1], a[2], a[4:],
+        k2_best, k2_err = check_k2_call("K2 in one controller tick", a[0], a[1], a[2], a[4:],
                                         plant=kw.get("plant", True))
-        print(f"tools: K1 on latency_decomp's inputs max abs err {k1_err:.3e}; K2 in one "
-              f"on_state max abs err {k2_err:.3e} (winner {k2_best})", flush=True)
+        print(f"tools: K1 on latency_decomp's inputs max abs err {k1_err:.3e}; K2 in the "
+              f"controller's tick after 20 max abs err {k2_err:.3e} (winner {k2_best})",
+              flush=True)
 
         reset_counts()
         (stg,), seconds["profile_kernel_stages"] = run_tool("profile_kernel_stages",
@@ -1926,9 +2008,12 @@ def main():
         return out
 
     kernels = [timed("sqp", phase_sqp, dev), timed("tick", phase_tick, dev)]
-    phases = {"run_sampled_mpc": timed("run_sampled_mpc", phase_main_path, dev),
-              "runtime_in_process": timed("runtime_in_process", phase_runtime_inprocess, dev),
-              "runtime_udp": timed("runtime_udp", phase_runtime_udp, dev)}
+    phases, graphs = {}, {}
+    phases["run_sampled_mpc"], graphs["device_loop"] = timed("run_sampled_mpc",
+                                                             phase_main_path, dev)
+    phases["runtime_in_process"], graphs["controller"] = timed(
+        "runtime_in_process", phase_runtime_inprocess, dev)
+    phases["runtime_udp"] = timed("runtime_udp", phase_runtime_udp, dev)
     phases["run_mpc"], single_lane = timed("run_mpc", phase_point_to_goal, dev)
     phases["readable_vs_two_kernel"], loop9, readable = timed(
         "readable_vs_two_kernel", phase_readable, dev)
@@ -1939,6 +2024,7 @@ def main():
     phases["tools"], tools = timed("tools", phase_tools, dev, kernels[0]["ms"])
     phases["bench"], phases["scale_bench"], benches = timed("bench", phase_bench, dev)
     print("phase seconds: " + json.dumps(seconds), flush=True)
+    print("graphs: " + json.dumps(graphs), flush=True)
     print("bench: " + json.dumps(benches), flush=True)
     print("tools: " + json.dumps(tools), flush=True)
     print("recorded_runs: " + json.dumps(recorded), flush=True)

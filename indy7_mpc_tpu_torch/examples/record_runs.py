@@ -15,9 +15,10 @@ the goldens.
 Transports:
   * ``device`` (:func:`run_device_resident`): the whole closed loop
     (``make_loop_tick``'s two-kernel tick: K1, then K2 with consensus,
-    plant step and trace FK) in chunks of ``chunk`` ticks, a sync after
-    each; a tick's ``solve_times`` entry is its chunk's host-clock time
-    over the chunk's ticks, ``dts`` is exactly dt;
+    plant step and trace FK, on ``mpc.graphed.LoopTickRunner``'s buffers,
+    replayed on the card as captured CUDA graphs) in chunks of ``chunk``
+    ticks, a sync after each; a tick's ``solve_times`` entry is its
+    chunk's host-clock time over the chunk's ticks, ``dts`` is exactly dt;
   * ``inproc`` (:func:`run_one`): ``SampledController`` (K1, K2 as the
     consensus) against ``InProcessPlant`` (K2 at B=1), ticked by
     ``run_control_loop`` without the wall clock; ``solve_times`` is each
@@ -53,7 +54,8 @@ import numpy as np
 import torch
 
 from ..models import indy7
-from ..mpc import SampledTrace, init_loop_carry, make_loop_tick
+from ..mpc import init_loop_carry, make_loop_tick
+from ..mpc.graphed import LoopTickRunner
 from ..mpc.sampled import SampledLoopCarry
 from ..runtime import (
     InProcessPlant, RunRecorder, SampledController, UdpTransport, run_control_loop,
@@ -97,14 +99,6 @@ def plant_node_command(plant_cfg, dt: float = DT, realtime_scale: float = 1.0,
     return cmd
 
 
-def _run_chunk(tick, carry, draws, start: int, n: int):
-    traces = []
-    for t in range(start, start + n):
-        carry, trace = tick(carry, None if draws is None else draws[t])
-        traces.append(trace)
-    return carry, SampledTrace(*(torch.stack(f) for f in zip(*traces)))
-
-
 def run_device_resident(B, ticks, plant_cfg, out_dir, tag, chunk=100, mirror_port=None, *,
                         device="cuda", seed=DEFAULT_SEED, N=N, max_iters=MAX_ITERS,
                         dtype=torch.float32, carry0: Optional[SampledLoopCarry] = None,
@@ -138,10 +132,15 @@ def run_device_resident(B, ticks, plant_cfg, out_dir, tag, chunk=100, mirror_por
                                 F_TRUE0, gen)
     else:
         carry = SampledLoopCarry(*(v.to(dev) for v in carry0))
-    state = gen.get_state()  # warm-up: kernel build and first launches
-    _run_chunk(tick, carry, draws, 0, chunk)
+    runner = LoopTickRunner(tick, carry, chunk, with_draws=draws is not None)
+    chunk_draws = lambda start, n: None if draws is None else draws[start:start + n]
+    # Warm-up: kernel build, first launches and, on the card, the graphs'
+    # capture; then the generator and the carry are put back.
+    state = gen.get_state()
+    runner.run(chunk, chunk_draws(0, chunk))
     protocol.synchronize(dev)
     gen.set_state(state)
+    runner.load(carry)
     init_s = time.perf_counter() - t_init0
 
     mirror = None
@@ -159,7 +158,7 @@ def run_device_resident(B, ticks, plant_cfg, out_dir, tag, chunk=100, mirror_por
             tc = time.perf_counter()
             if events:
                 events[0].record()
-            carry, trace = _run_chunk(tick, carry, draws, done, n)
+            trace = runner.run(n, chunk_draws(done, n))
             if events:
                 events[1].record()
             protocol.synchronize(dev)
@@ -184,7 +183,7 @@ def run_device_resident(B, ticks, plant_cfg, out_dir, tag, chunk=100, mirror_por
     row["chunk"] = chunk
     row["event_us"] = event_ms * 1e3 / ticks if events else None
     _save_row(row)
-    return row, carry
+    return row, runner.carry()
 
 
 def run_one(B, ticks, plant_cfg, out_dir, tag, transport="inproc", realtime_scale=1.0,

@@ -16,14 +16,16 @@ Without ``--runtime`` it prints, and writes as JSON to ``--out``:
   * K1 at B=64, N=64, 2 SQP iterations at 256 and 128 threads a block, in
     turns, and cumulatively at its profiling cut, stages 1, 1-2, 1-3 and
     1-4;
-  * the closed-loop tick at the fig-8 configuration (B=64, N=64, 2 SQP
-    iterations, perturbed plant): ms per tick by CUDA events and by the
-    host clock over steady ticks, then a ``torch.profiler`` window whose
-    device time per kernel, divided by the window's wall time, gives the
-    device's busy share;
-  * the runtime's controller tick (``SampledController.on_state`` at the
-    same sizes, without a plant): its host-clock ``solve_time_us`` and a
-    profiler window;
+  * the closed-loop tick at the fig-8 configuration (N=64, 2 SQP
+    iterations, perturbed plant) at B = 64, 256 and 1,024, eager (a Python
+    loop over the tick module) and graphed (``mpc.graphed.LoopTickRunner``,
+    replayed CUDA graphs) in turns (``loop_modes``): µs per tick by CUDA
+    events and by the host clock, host-side launches, device kernels and
+    device µs a tick under ``torch.profiler``, and the busy share;
+  * the runtime's controller tick (B=64, N=64, without a plant), graphed
+    (``SampledController.on_state``) and eager (its ``ControllerTick``
+    called directly) in turns: host-clock p50/p95 and the launches and
+    device time of one tick;
   * kernel K2 (``tick_epilogue``, see ``--k2``).
 
 With ``--k2`` it runs only K2's section: CUDA-event ms per launch over 50
@@ -100,6 +102,7 @@ from .config import PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPCon
 from .examples.protocol import synchronize
 from .models import indy7
 from .mpc import init_loop_carry, make_fused_loop_tick, reference
+from .mpc.graphed import LoopTickRunner
 from .ops import lane_rbd as LR
 from .ops.kernels import sqp_kernel as K1
 from .ops.kernels.sqp_kernel import sqp_solve
@@ -253,8 +256,10 @@ def k1_variants(dev, reps=50, B=64, N=64, iters=2):
     return out
 
 
-def tick_timing(dev, warm=20, steady=50, profiled=20):
-    B, N = 64, 64
+def fig8_loop(dev, B, N=64):
+    """The closed-loop tick of the fig-8 configuration (N=64, 2 SQP
+    iterations, perturbed plant) at B lanes: (the tick module, its cold
+    carry), both drawing from one generator seeded 42."""
     ref = reference.with_padding(
         reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45],
                           period=10, dt=DT, cycles=1), 200)
@@ -268,30 +273,63 @@ def tick_timing(dev, warm=20, steady=50, profiled=20):
     )
     x0 = torch.zeros(12, dtype=torch.float32, device=dev)
     x0[:6] = torch.tensor(INIT_Q)
-    carry = init_loop_carry(model, mpc_cfg, sample_cfg, x0, F_TRUE0, gen)
+    return tick, init_loop_carry(model, mpc_cfg, sample_cfg, x0, F_TRUE0, gen)
 
-    def run(n):
+
+def loop_modes(dev, B, ticks=100):
+    """The fig-8 closed-loop tick at B lanes, eager (a Python loop over the
+    tick module, the port before its graphs) and graphed
+    (``mpc.graphed.LoopTickRunner``, as ``run_sampled_mpc`` runs it), each
+    a run of ``ticks`` ticks: µs a tick by CUDA events (no device sleep:
+    the host's launch path is in it) and by the host clock, two runs each
+    in turns (eager, graphed, graphed, eager) after a warm-up run (the
+    graphed one captures), then one more run of each under the profiler:
+    host-side launches, device kernels and copies, and device µs a tick,
+    and the busy share (device µs over the CUDA-event µs)."""
+    tick, carry = fig8_loop(dev, B)
+    runner = LoopTickRunner(tick, carry, ticks)
+
+    def eager():
         nonlocal carry
-        for _ in range(n):
+        for _ in range(ticks):
             carry, _ = tick(carry)
 
-    run(warm)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(steady)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / steady
+    modes = {"eager": eager, "graphed": lambda: runner.run(ticks)}
+    for fn in modes.values():
+        fn()
+    out = {name: {"event_us": [], "host_us": []} for name in modes}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    run(steady)
-    end.record()
-    torch.cuda.synchronize()
-    event_ms = start.elapsed_time(end) / steady
+    for name in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        modes[name]()
+        end.record()
+        torch.cuda.synchronize()
+        out[name]["host_us"].append((time.perf_counter() - t0) * 1e6 / ticks)
+        out[name]["event_us"].append(start.elapsed_time(end) * 1e3 / ticks)
+    for name, fn in modes.items():
+        o = out[name]
+        o["us_per_tick"] = float(np.mean(o["event_us"]))
+        host, kernels, device_ms = launch_work(fn)
+        o.update(host_launches_per_tick=host / ticks, device_launches_per_tick=kernels / ticks,
+                 device_us_per_tick=device_ms * 1e3 / ticks,
+                 busy_share=device_ms * 1e3 / ticks / o["us_per_tick"] if kernels else None)
+    print(f"closed-loop tick B={B} N=64 perturbed, {ticks} ticks a run: " + "; ".join(
+        f"{name} {o['us_per_tick']:.1f} us/tick (CUDA events, runs "
+        + "/".join(f"{v:.1f}" for v in o["event_us"]) + "; host clock "
+        + "/".join(f"{v:.1f}" for v in o["host_us"])
+        + f"), {o['host_launches_per_tick']:.2f} host-side launches and "
+        f"{o['device_launches_per_tick']:.2f} device kernels and copies a tick, "
+        f"{o['device_us_per_tick']:.1f} us device time, busy "
+        + ("not measured" if o["busy_share"] is None else f"{100 * o['busy_share']:.1f}%")
+        for name, o in out.items()), flush=True)
+    return out
 
-    prof = profile_device(run, profiled)
-    print(f"tick B={B} N={N} perturbed: {event_ms:.4f} ms/tick (CUDA events, {steady} ticks), "
-          f"{host_ms:.4f} ms/tick (host clock); {_profile_line(prof)}", flush=True)
-    return {"event_ms_per_tick": event_ms, "host_ms_per_tick": host_ms, **prof}
+
+def tick_timing(dev, lanes=(64, 256, 1024)):
+    """:func:`loop_modes` at each B of ``lanes``."""
+    return {str(B): loop_modes(dev, B) for B in lanes}
 
 
 def profile_device(run, n):
@@ -400,19 +438,32 @@ def readable_section(dev, reps=3):
     return out
 
 
-def device_work(fn):
-    """The device kernels and copies of one call of ``fn``, and their device
-    ms, from ``torch.profiler``'s raw CUDA events (aggregating them with
-    ``key_averages`` takes over a minute at 77k events)."""
+# The CUDA API calls (runtime ``cuda*`` and low-level ``cu*``) by which the
+# host puts work on a stream; a graph replay is one ``cudaGraphLaunch``
+# whatever the graph holds.
+HOST_LAUNCH_CALLS = frozenset({
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+    "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemcpy",
+    "cudaMemsetAsync", "cudaMemset",
+})
+
+
+def launch_work(fn):
+    """One call of ``fn`` under ``torch.profiler``: (its host-side launches,
+    the calls of :data:`HOST_LAUNCH_CALLS` the profiler records; its device
+    kernels and copies; their device ms), from the raw events (aggregating
+    them with ``key_averages`` takes over a minute at 77k events)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == torch.autograd.DeviceType.CUDA]
-    return len(events), sum(e.duration_ns() for e in events) / 1e6
+    events = prof.profiler.kineto_results.events()
+    on_device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    host = sum(e.device_type() == torch.autograd.DeviceType.CPU and e.name() in HOST_LAUNCH_CALLS
+               for e in events)
+    return host, len(on_device), sum(e.duration_ns() for e in on_device) / 1e6
 
 
 def call_costs(fn, reps=3):
@@ -421,7 +472,7 @@ def call_costs(fn, reps=3):
     synchronizing CUDA operation warns under ``set_sync_debug_mode``),
     means over ``reps`` calls after a warm-up (no device sleep: the
     readable layer reads the host inside a call); the device kernels and
-    device ms of one more call (:func:`device_work`).
+    device ms of one more call (:func:`launch_work`).
     Returns (dict, the warm-up call's result)."""
     import warnings
 
@@ -443,7 +494,7 @@ def call_costs(fn, reps=3):
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     event_ms = start.elapsed_time(end) / reps
     syncs = sum("synchronizing" in str(w.message) for w in caught) / reps
-    kernels, device_ms = device_work(fn)
+    _, kernels, device_ms = launch_work(fn)
     return {"host_ms": host_ms, "event_ms": event_ms, "syncs": syncs, "kernels": kernels,
             "device_ms": device_ms, "busy_share": device_ms / host_ms}, out
 
@@ -519,28 +570,51 @@ def runtime_controller(dev, B=64, N=64):
     )
 
 
-def controller_timing(dev, warm=10, steady=50, profiled=20):
-    """``SampledController.on_state`` alone (no plant: the same host state
-    every tick): its own host-clock ``solve_time_us`` and a profile."""
+def controller_timing(dev, warm=10, steady=50):
+    """The controller tick without a plant (the same host state every
+    tick), graphed (``SampledController.on_state``: its own host-clock
+    ``solve_time_us``) and eager (the controller's ``ControllerTick`` called
+    on the same state buffers, from the state's upload to the fetch, as
+    ``on_state`` ran before its graph), in turns, one tick of each after
+    the other; p50/p95 over ``steady`` ticks of each after ``warm``, and
+    one tick of each under the profiler (host-side launches, device
+    kernels and copies, device µs)."""
     ctl = runtime_controller(dev)
-    x = torch.zeros(12)
-    x[:6] = torch.tensor(INIT_Q)
-    times = []
+    x = np.zeros(12, np.float32)
+    x[:6] = INIT_Q
 
-    def run(n):
-        for _ in range(n):
-            times.append(ctl.on_state(x, DT)[1]["solve_time_us"])
+    def graphed():
+        return ctl.on_state(x, DT)[1]["solve_time_us"]
 
-    run(warm)
-    del times[:]
-    run(steady)
-    us = np.asarray(times)
-    prof = profile_device(run, profiled)
-    print(f"controller tick B=64 N=64: solve_time_us p50 {np.percentile(us, 50):.1f}, "
-          f"p95 {np.percentile(us, 95):.1f} ({steady} ticks); {_profile_line(prof)}",
-          flush=True)
-    return {"solve_time_us_p50": float(np.percentile(us, 50)),
-            "solve_time_us_p95": float(np.percentile(us, 95)), **prof}
+    def eager():
+        t0 = time.perf_counter()
+        xd = torch.as_tensor(x).to(dev)
+        x_last = ctl.x_last if ctl.x_last is not None else xd
+        _, host = ctl._tick(int(ctl.ref_offset), xd, x_last, ctl.u_last, ctl.X_best,
+                            ctl.U_best, ctl.f_batch)
+        host.cpu()
+        return (time.perf_counter() - t0) * 1e6
+
+    modes = {"graphed": graphed, "eager": eager}
+    times = {name: [] for name in modes}
+    for i in range(warm + steady):
+        for name, fn in modes.items():
+            us = fn()
+            if i >= warm:
+                times[name].append(us)
+    out = {}
+    for name, fn in modes.items():
+        us = np.asarray(times[name])
+        host, kernels, device_ms = launch_work(fn)
+        out[name] = {"solve_time_us_p50": float(np.percentile(us, 50)),
+                     "solve_time_us_p95": float(np.percentile(us, 95)),
+                     "host_launches": host, "device_launches": kernels,
+                     "device_us": device_ms * 1e3}
+    print(f"controller tick B=64 N=64, {steady} ticks of each in turns: " + "; ".join(
+        f"{name} p50 {o['solve_time_us_p50']:.1f} us, p95 {o['solve_time_us_p95']:.1f} us, "
+        f"{o['host_launches']} host-side launches, {o['device_launches']} device kernels and "
+        f"copies, {o['device_us']:.1f} us device time" for name, o in out.items()), flush=True)
+    return out
 
 
 def runtime_run(dev, out_dir, ticks=3500):

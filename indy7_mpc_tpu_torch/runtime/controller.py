@@ -18,10 +18,11 @@ Tick semantics mirror ``GATO_Controller.joint_callback``
 
 The controller's state is float32 on its ``device``, the card unless the
 caller passes ``device="cpu"``; on CUDA each tick launches the SQP kernel
-(K1) once and the tick-epilogue kernel (K2) once.  With an injected
-``batch_solve_fn``, or a configuration outside K1's coverage, the tick is
-the readable one (``mpc/readable_tick.py``) on that solver or on the
-readable solver.
+(K1) once and the tick-epilogue kernel (K2) once, as one replay of the
+tick captured as a CUDA graph at warm-up (:class:`ControllerTickRunner`).
+With an injected ``batch_solve_fn``, or a configuration outside K1's
+coverage, the tick is the readable one (``mpc/readable_tick.py``) on that
+solver or on the readable solver, run eagerly.
 """
 from __future__ import annotations
 
@@ -48,9 +49,11 @@ class ControllerTick(nn.Module):
     error of the observed state.
 
     ``forward(offset, x, x_last, u_last, X, U, f_batch, normals=None) ->
-    (SampledTickResult, host)``; ``host`` (20,) packs what the host loop
-    reads, [u (6), best lane, f_est (6), ee_ref (3), ee_pos (3), tracking
-    error], so that one transfer fetches it.
+    (SampledTickResult, host)``; ``offset`` is a Python int or a 0-d
+    integer tensor (the window is then gathered on the device); ``host``
+    (20,) packs what the host loop reads, [u (6), best lane, f_est (6),
+    ee_ref (3), ee_pos (3), tracking error], so that one transfer fetches
+    it.
     """
 
     def __init__(self, model, cost_cfg, sqp_cfg, mpc_cfg, sample_cfg, ref_traj,
@@ -63,7 +66,7 @@ class ControllerTick(nn.Module):
         )
         self.register_buffer("ref_traj", torch.as_tensor(ref_traj))
 
-    def forward(self, offset: int, x, x_last, u_last, X, U, f_batch, normals=None):
+    def forward(self, offset, x, x_last, u_last, X, U, f_batch, normals=None):
         goals = reference_window(self.ref_traj, offset, self.N)
         out, eep = self.sampled(x, x_last, u_last, goals, X, U, f_batch, normals)
         terr = torch.linalg.norm(eep - goals[0])
@@ -74,8 +77,124 @@ class ControllerTick(nn.Module):
         return out, host
 
 
+class ControllerTickRunner:
+    """:class:`ControllerTick` on fixed buffers: the controller's state
+    (``X_best``, ``U_best``, ``f_batch``, ``x_last``, ``u_last``), its input
+    ``inp`` (the observed state, then the reference offset's int32 bits)
+    and its output ``host`` (the packed vector).
+
+    :meth:`step` loads the input (from a pinned host buffer in one copy,
+    or, for an observed state already on the card, that state's device
+    copy and the offset's), runs the tick and fetches ``host``.  On CUDA,
+    when the tick is the two-kernel one (the readable tick reads the host
+    inside a tick), :meth:`capture` records one tick as a CUDA graph
+    (``mpc.graphed.TickGraph``, the controller's generator registered), and
+    every later step replays it; a step before the capture runs the body
+    eagerly and then captures.  Elsewhere every step runs the body eagerly.
+    The graph reads the buffers' addresses, so the controller writes its
+    state into them with ``copy_`` and never rebinds them.
+    """
+
+    def __init__(self, tick: ControllerTick, f_batch, nx: int, nu: int,
+                 generator: Optional[torch.Generator]):
+        from ..mpc.fused_tick import SampledTick
+
+        dev = f_batch.device
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+        self.tick, self.generator = tick, generator
+        self.X_best, self.U_best = zeros(tick.N, nx), zeros(tick.N - 1, nu)
+        self.f_batch = f_batch.detach().to(torch.float32).clone()
+        self.x_last, self.u_last = zeros(nx), zeros(nu)
+        self.has_last = False
+        self.inp = zeros(nx + 1)
+        self.staged = self.inp if dev.type == "cpu" else torch.zeros(
+            nx + 1, dtype=torch.float32, pin_memory=True)
+        self.host = zeros(nu + 14)
+        self.graph = None
+        self.graphable = (dev.type == "cuda" and isinstance(tick.sampled, SampledTick)
+                          and tick.sampled.mesh.size == 1)
+
+    def buffers(self):
+        """Every tensor the tick reads or writes outside its graph's pool."""
+        return [self.X_best, self.U_best, self.f_batch, self.x_last, self.u_last,
+                self.inp, self.host]
+
+    def _body(self, normals=None) -> None:
+        x = self.inp[:-1]
+        offset = self.inp[-1:].view(torch.int32)[0].to(torch.int64)
+        out, host = self.tick(offset, x, self.x_last, self.u_last, self.X_best,
+                              self.U_best, self.f_batch, normals)
+        # The new state, after every read of the old one.
+        self.X_best.copy_(out.X_best)
+        self.U_best.copy_(out.U_best)
+        self.f_batch.copy_(out.f_batch)
+        self.x_last.copy_(x)
+        self.u_last.copy_(out.u)
+        self.host.copy_(host)
+
+    def capture(self) -> None:
+        """Capture one tick as a CUDA graph (``graphable`` runners only; the
+        tick must have run once, eagerly, in this process: see
+        ``SampledController``'s warm-up)."""
+        from ..mpc.graphed import TickGraph
+
+        self.graph = TickGraph(self._body, 1, self.generator)
+
+    def step(self, x_obs, offset: int, normals=None) -> np.ndarray:
+        """One tick on the observed state ``x_obs`` at reference offset
+        ``offset``; returns the packed host vector.  ``normals`` (the (B, 6)
+        resampling draws, for replaying another random stream) need the
+        eager body: a captured tick draws from the generator."""
+        if normals is not None and self.graphable:
+            raise ValueError("the captured tick draws its normals from the generator")
+        self.staged[-1:].view(torch.int32)[0] = offset
+        if isinstance(x_obs, torch.Tensor) and x_obs.device == self.inp.device:
+            self.inp[:-1].copy_(x_obs)
+            if self.staged is not self.inp:
+                self.inp[-1:].copy_(self.staged[-1:], non_blocking=True)
+        else:
+            self.staged[:-1].copy_(torch.as_tensor(np.asarray(x_obs)))
+            if self.staged is not self.inp:
+                self.inp.copy_(self.staged, non_blocking=True)
+        if not self.has_last:
+            self.x_last.copy_(self.inp[:-1])
+            self.has_last = True
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self._body(normals)
+            if self.graphable:
+                self.capture()
+        return self.host.to("cpu", copy=True).numpy()
+
+
+class _StateBuffer:
+    """A controller field held in its tick runner's buffer of the same
+    name: reading gives the buffer, assigning copies into it."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, ctl, owner=None):
+        return self if ctl is None else getattr(ctl.runner, self.name)
+
+    def __set__(self, ctl, value):
+        getattr(ctl.runner, self.name).copy_(torch.as_tensor(value))
+
+
 class SampledController:
-    """Host-side controller state machine around the device tick."""
+    """Host-side controller state machine around the device tick.
+
+    The state the tick carries (``X_best``, ``U_best``, ``f_batch``,
+    ``x_last``, ``u_last``) lives in the buffers of ``runner``, a
+    :class:`ControllerTickRunner`: reading a field gives its buffer, which
+    the next tick overwrites, and assigning one copies into it.
+    """
+
+    X_best = _StateBuffer()
+    U_best = _StateBuffer()
+    f_batch = _StateBuffer()
+    u_last = _StateBuffer()
 
     def __init__(
         self,
@@ -97,30 +216,26 @@ class SampledController:
         self.sample_cfg = sample_cfg
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-        N = mpc_cfg.N
         self.ref_offset = 0.0
-        self.f_batch = init_wrench_batch(
-            self.generator, sample_cfg, torch.float32, self.device
-        )
+        f_batch = init_wrench_batch(self.generator, sample_cfg, torch.float32, self.device)
         self.f_ext_actual = np.zeros(3) if f_ext_actual is None else np.asarray(
             f_ext_actual, float
         )
-        self.X_best = self._zeros(N, model.nx)
-        self.U_best = self._zeros(N - 1, model.nu)
-        self.x_last = None
-        self.u_last = self._zeros(model.nu)
 
         # The WHOLE control tick is one module call: goal window at the
         # offset, solve/score/resample, EE and tracking error; its only
         # synchronizing transfer is the packed host vector (the reference
         # pays one pybind call per tick for the same reason,
-        # gato_controller.py:224).
+        # gato_controller.py:224).  On CUDA the runner replays it as one
+        # captured graph, the TPU package's one jitted program.
         self._tick = ControllerTick(
             model.to(device=self.device, dtype=torch.float32), cost_cfg,
             sqp_cfg, mpc_cfg, sample_cfg,
             torch.as_tensor(np.asarray(ref_traj), dtype=torch.float32),
             self.generator, batch_solve_fn, self.device,
         ).to(self.device)
+        self.runner = ControllerTickRunner(self._tick, f_batch, model.nx, model.nu,
+                                           self.generator)
         if warmup:
             # Cold-start throwaway tick from zeros (the reference's
             # init-time warm-up, gato_controller.py:180-184): pays the
@@ -128,13 +243,29 @@ class SampledController:
             # construction, so the first real control tick runs at steady
             # state.  Its normals are zeros, not draws, and every output is
             # discarded: the controller state and the generator are
-            # untouched, so resumed runs stay bit-identical.
+            # untouched, so resumed runs stay bit-identical.  On CUDA the
+            # tick is then captured (the TPU package's jit compile at
+            # warm-up); the capture launches nothing and draws nothing.
             z = self._zeros(model.nx)
             _, host = self._tick(
                 0, z, z, self.u_last, self.X_best, self.U_best, self.f_batch,
                 normals=torch.zeros_like(self.f_batch),
             )
             host.cpu()
+            if self.runner.graphable:
+                self.runner.capture()
+
+    @property
+    def x_last(self) -> Optional[torch.Tensor]:
+        """The last observed state (the runner's buffer), or None before the
+        first tick and after :meth:`reset_warm_start`."""
+        return self.runner.x_last if self.runner.has_last else None
+
+    @x_last.setter
+    def x_last(self, value) -> None:
+        if value is not None:
+            self.runner.x_last.copy_(torch.as_tensor(value))
+        self.runner.has_last = value is not None
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
@@ -147,30 +278,18 @@ class SampledController:
     def on_state(self, x_obs, elapsed: float):
         """One control tick; returns (u, info dict).
 
-        One module call + one blocking device->host fetch of the small
-        outputs (u, best lane, wrench estimate, current reference, EE,
-        tracking error); the warm-start trajectory and hypothesis batch
-        stay on the device.
+        The observed state and the reference offset go to the device, the
+        tick runs (on CUDA one graph replay), and one blocking
+        device->host fetch brings the small outputs (u, best lane, wrench
+        estimate, current reference, EE, tracking error); the warm-start
+        trajectory and hypothesis batch stay on the device.
+        ``solve_time_us`` times all three.
         """
-        x = torch.as_tensor(x_obs, dtype=torch.float32).to(self.device)
-        if self.x_last is None:
-            self.x_last = x
         self.ref_offset += elapsed / self.mpc_cfg.dt
-
         t0 = time.perf_counter()
-        out, host = self._tick(
-            int(self.ref_offset), x, self.x_last, self.u_last,
-            self.X_best, self.U_best, self.f_batch,
-        )
-        # The tick's ONLY synchronizing transfer.
-        host = host.cpu().numpy()
+        # The tick's ONLY synchronizing transfer is the fetch at its end.
+        host = self.runner.step(x_obs, int(self.ref_offset))
         solve_time_us = (time.perf_counter() - t0) * 1e6
-
-        self.X_best = out.X_best
-        self.U_best = out.U_best
-        self.f_batch = out.f_batch
-        self.x_last = x
-        self.u_last = out.u
         info = {
             "best_idx": int(host[6]),
             "f_est": host[7:13].copy(),
@@ -189,11 +308,9 @@ class SampledController:
         generator, and the reference offset are kept (the reference's 'R'
         reset likewise leaves the controller process running,
         sim_node.cpp:107-130)."""
-        N = self.mpc_cfg.N
-        self.X_best = self._zeros(N, self.model.nx)
-        self.U_best = self._zeros(N - 1, self.model.nu)
+        for buf in (self.X_best, self.U_best, self.u_last):
+            buf.zero_()
         self.x_last = None
-        self.u_last = self._zeros(self.model.nu)
 
     def save_checkpoint(self, path: str) -> str:
         """Persist the controller's full warm-start/estimator state.

@@ -24,10 +24,14 @@ takes six direct measurements:
 then the closed loop: ``run_control_loop`` against ``InProcessPlant`` with
 the perturbed plant for ``--ticks`` ticks without the wall clock, and the
 ``solve_times`` it records.  One ``on_state`` is also profiled
-(``measure.device_work``): its device launches and device time split the
-residual (tick_block - null_rtt - fetch_rtt - solve_device, the TPU tool's
-attribution) into the tick's other device work and the host's share
-(``tick_host_us``), which the launches a tick turn into µs a launch.
+(``measure.launch_work``): its device kernels and copies and their device
+time split the residual (tick_block - null_rtt - fetch_rtt - solve_device,
+the TPU tool's attribution) into the tick's other device work and the
+host's share (``tick_host_us``), which its host-side launches
+(``tick_host_launches``) turn into µs a launch.  On the card ``on_state``
+replays the tick as one captured CUDA graph, so those launches are the
+input copy, the graph launch (with PyTorch's two fills of the generator's
+seed and offset) and the fetch; the graph's kernels are device work.
 
 The stall hunt, this port's counterpart of the TPU tool's JIT-compile log,
 counts what happens in the loop after its first tick (the first tick's
@@ -196,9 +200,10 @@ def main(argv=None) -> int:
     ctl = measure.runtime_controller(dev, B, N)
     x0 = np.zeros(12, np.float32)
     tick_block = measure.blocking_us(lambda: ctl.on_state(x0, DT), TICK_REPS, dev)
-    tick_launches = tick_device_ms = tick_host_us = None
+    tick_launches = tick_device_ms = tick_host_us = tick_host_launches = None
     if dev.type == "cuda":
-        tick_launches, tick_device_ms = measure.device_work(lambda: ctl.on_state(x0, DT))
+        tick_host_launches, tick_launches, tick_device_ms = measure.launch_work(
+            lambda: ctl.on_state(x0, DT))
 
     # 7. The stall hunt: the closed loop against the perturbed plant.
     tick_us, per_tick, loop_events = closed_loop(model, B, N, args.ticks, dev)
@@ -225,6 +230,7 @@ def main(argv=None) -> int:
         "tick_block_us": p50_p95(tick_block),
         "host_residual_us": residual_us,
         "tick_device_launches": tick_launches,
+        "tick_host_launches": tick_host_launches,
         "tick_device_ms": tick_device_ms,
         "tick_host_us": tick_host_us,
         "loop_ticks": int(len(tick_us)),
@@ -254,12 +260,15 @@ def write_report(args, r, n_stalls):
         chain_note = (f"by CUDA events, but the host had NOT queued all {CHAIN} solves before the "
                       "first ran: the host's launch path is in this figure")
     if r["tick_device_launches"]:
-        n, host = r["tick_device_launches"], r["tick_host_us"]
+        n, host, h = r["tick_device_launches"], r["tick_host_us"], r["tick_host_launches"]
+        per = f", {us(host / h)} for each of its {h} host-side launches" if h else ""
         work = (f"One `on_state` runs {n} device kernels and copies with "
-                f"{us(r['tick_device_ms'] * 1e3)} of device time (`measure.device_work`): "
+                f"{us(r['tick_device_ms'] * 1e3)} of device time (`measure.launch_work`), "
+                f"launched by {h} host-side calls (the input copy, the replay of the tick's "
+                f"CUDA graph with the generator's seed and offset fills, the fetch): "
                 f"{us(residual - host)} of the residual is device work besides the solve (K2 as "
                 f"the consensus and the tick's small kernels), the other {us(host)} is the "
-                f"host's, {us(host / n)} for each of the {n} launches.")
+                f"host's{per}.")
     else:
         work = "Launches a tick: not measured (no card)."
     events = {k: r[f"{k}_during_loop"] for k in EVENT_KINDS}

@@ -857,3 +857,181 @@ def test_solve_benchmarks_on_the_card(cuda):
         assert set(row) == keys["final_row"] and row["finite"] and row["us_per_batch"] > 0
     for args, res in last.values():
         against_plain(args, res)
+
+
+# ---- The ticks as captured CUDA graphs (mpc/graphed.py, runtime/controller.py) ----
+
+def _fig8_loop(cuda, lanes, horizon, seed=42):
+    """The fig-8 two-kernel loop tick on the perturbed plant and its cold
+    carry, drawing from a generator seeded ``seed``: (tick, carry, generator,
+    the run_sampled_mpc arguments after the model)."""
+    from indy7_mpc_tpu_torch.mpc import make_loop_tick
+
+    ref = reference.with_padding(reference.figure8(
+        A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT, cycles=1), 200)
+    model = indy7(torch.float32, cuda)
+    cfgs = (COST, SQP, MPCConfig(N=horizon, dt=DT), SampleConfig(batch_size=lanes))
+    x0 = _f32(np.r_[INIT_Q, np.zeros(6)], cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    tick = make_loop_tick(model, *cfgs, _f32(ref, cuda), plant_cfg=PERTURBED_PLANT,
+                          generator=gen)
+    return tick, init_loop_carry(model, cfgs[2], cfgs[3], x0, F_TRUE0, gen), gen, (cfgs, x0, ref)
+
+
+def test_graphed_loop_equals_eager_loop(cuda):
+    """``run_sampled_mpc`` (its first tick eager, then one 10-tick graph and
+    nine 1-tick graphs) against 20 eager calls of the same tick module at
+    B=64/N=64 on the perturbed plant: trace, carry and generator state bit
+    for bit; K1 and K2 counted once a tick."""
+    ticks = 20
+    tick, carry, gen, (cfgs, x0, ref) = _fig8_loop(cuda, 64, 64)
+    rows = []
+    for _ in range(ticks):
+        carry, row = tick(carry)
+        rows.append(row)
+    gen_g = torch.Generator(device=cuda).manual_seed(42)
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    final, trace = run_sampled_mpc(indy7(torch.float32, cuda), *cfgs, x0, ref, ticks, F_TRUE0,
+                                   gen_g, plant_cfg=PERTURBED_PLANT)
+    assert (sqp_solve.launches - before[0], tick_epilogue.launches - before[1]) == (ticks, ticks)
+    for f in trace._fields:
+        assert torch.equal(getattr(trace, f), torch.stack([getattr(r, f) for r in rows])), f
+    for f, a, b in zip(carry._fields, final, carry):
+        assert torch.equal(a, b), f
+    assert torch.equal(gen_g.get_state(), gen.get_state())
+
+
+def test_graph_replays_count_one_k1_and_k2_a_tick(cuda):
+    """A runner's 10-tick graph records 10 launches of each kernel and its
+    1-tick graph one; 25 replayed ticks (two 10-tick replays, five 1-tick
+    ones) add 25 to each counter, and the captures add none."""
+    from indy7_mpc_tpu_torch.mpc.graphed import TICKS_PER_GRAPH, LoopTickRunner
+
+    tick, carry, _, _ = _fig8_loop(cuda, B, N)
+    runner = LoopTickRunner(tick, carry, rows=25)
+    runner.run(1)  # eager
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    runner.run(25)
+    assert (sqp_solve.launches - before[0], tick_epilogue.launches - before[1]) == (25, 25)
+    assert [g.ticks for g in runner.graphs] == [TICKS_PER_GRAPH, 1]
+    assert [g.launches for g in runner.graphs] == [[TICKS_PER_GRAPH] * 2, [1, 1]]
+
+
+def test_runner_for_another_lane_count_builds_its_own_graph(cuda):
+    """Runners at B=8 and B=16 each capture graphs of their own, the B=16
+    one ticks as its eager loop does, and the B=8 runner refuses the B=16
+    carry instead of replaying its graph on it."""
+    from indy7_mpc_tpu_torch.mpc.graphed import LoopTickRunner
+
+    runs = {}
+    for lanes in (8, 16):
+        tick, carry, _, _ = _fig8_loop(cuda, lanes, N, seed=lanes)
+        runner = LoopTickRunner(tick, carry, rows=12)
+        runs[lanes] = (runner, carry, runner.run(12))
+    (r8, _, _), (r16, c16, t16) = runs[8], runs[16]
+    assert not {id(g.graph) for g in r8.graphs} & {id(g.graph) for g in r16.graphs}
+    assert r16.carry().f_batch.shape == (16, 6)
+    tick, carry, _, _ = _fig8_loop(cuda, 16, N, seed=16)
+    for t in range(12):
+        carry, row = tick(carry)
+        assert int(row.best_idx) == int(t16.best_idx[t]) and torch.equal(row.x, t16.x[t])
+    with pytest.raises(ValueError):
+        r8.load(c16)
+
+
+def _fig8_controller(cuda, seed=5):
+    ref = reference.with_padding(reference.figure8(
+        A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT, cycles=1), 200)
+    return SampledController(
+        indy7(torch.float32), COST, SQP, MPCConfig(N=64, dt=DT),
+        SampleConfig(batch_size=64, f_ext_std=20.0, f_ext_resample_std=1.0), ref, seed=seed,
+        f_ext_actual=F_TRUE0[:3], device=cuda)
+
+
+def test_graphed_controller_equals_eager_controller_tick(cuda):
+    """20 ``on_state`` calls (each one graph replay) against 20 eager calls of
+    the same ``ControllerTick`` from a controller built alike, fed the same
+    states: every output, the final state and the generator bit for bit; K1
+    and K2 counted once an ``on_state``."""
+    ticks = 20
+    rng = np.random.default_rng(8)
+    xs = [np.r_[INIT_Q, np.zeros(6)] + 0.01 * rng.normal(size=12) for _ in range(ticks)]
+    ctl, ref_ctl = _fig8_controller(cuda), _fig8_controller(cuda)
+    assert ctl.runner.graph is not None  # captured at warm-up
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    got = []
+    for x in xs:
+        u, info = ctl.on_state(x.astype(np.float32), DT)
+        got.append(np.r_[u, info["best_idx"], info["f_est"], info["ee_ref"], info["ee_pos"],
+                         info["tracking_error"]])
+    assert (sqp_solve.launches - before[0], tick_epilogue.launches - before[1]) == (ticks, ticks)
+    X, U, f = ref_ctl.X_best.clone(), ref_ctl.U_best.clone(), ref_ctl.f_batch.clone()
+    x_last, u_last, offset = None, ref_ctl.u_last.clone(), 0.0
+    for x, g in zip(xs, got):
+        xd = _f32(x.astype(np.float32), cuda)
+        x_last = xd if x_last is None else x_last
+        offset += 1.0
+        out, host = ref_ctl._tick(int(offset), xd, x_last, u_last, X, U, f)
+        np.testing.assert_array_equal(g.astype(np.float32), host.cpu().numpy())
+        X, U, f, x_last, u_last = out.X_best, out.U_best, out.f_batch, xd, out.u
+    for name, want in (("X_best", X), ("U_best", U), ("f_batch", f), ("x_last", x_last),
+                       ("u_last", u_last)):
+        assert torch.equal(getattr(ctl, name), want), name
+    assert torch.equal(ctl.generator.get_state(), ref_ctl.generator.get_state())
+
+
+def test_graphed_controller_checkpoint_resume_bit_identical(cuda, tmp_path):
+    """Stop and resume through save_checkpoint/load_checkpoint on the card
+    (the resumed controller's graph reads the loaded buffers): the same
+    commands as the run without the stop, bit for bit."""
+
+    def ticks(ctl, plant, n, out):
+        for _ in range(n):
+            u, _ = ctl.on_state(plant.recv_state().x, DT)
+            plant.send_command(u)
+            out.append(u.copy())
+
+    x0 = _f32(np.r_[INIT_Q, np.zeros(6)], cuda)
+    plant = lambda: InProcessPlant(indy7(torch.float32), x0, DT, plant_cfg=PERTURBED_PLANT)
+    ua, ub = [], []
+    ticks(_fig8_controller(cuda), plant(), 8, ua)
+    plant_b, ctl_b = plant(), _fig8_controller(cuda)
+    ticks(ctl_b, plant_b, 4, ub)
+    ckpt = ctl_b.save_checkpoint(str(tmp_path / "ctl.npz"))
+    ctl_c = _fig8_controller(cuda, seed=9)
+    ctl_c.load_checkpoint(ckpt)
+    ticks(ctl_c, plant_b, 4, ub)
+    np.testing.assert_array_equal(np.asarray(ua), np.asarray(ub))
+
+
+def test_failed_capture_raises(cuda):
+    """A tick that reads the host cannot be captured: the capture raises,
+    no graph is kept, the launch counters are as before it, and no tick
+    runs eagerly in its place."""
+    from indy7_mpc_tpu_torch.mpc.graphed import LoopTickRunner
+
+    tick, carry, _, _ = _fig8_loop(cuda, B, N)
+
+    class HostReadingTick(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.inner, self.generator = tick, tick.generator
+            self.sample_cfg, self.plant_cfg = tick.sample_cfg, tick.plant_cfg
+
+        def forward(self, carry, draws=None):
+            new, trace = self.inner(carry, draws)
+            float(new.x.sum())  # a device -> host read
+            return new, trace
+
+    runner = LoopTickRunner(HostReadingTick(), carry, rows=4)
+    runner.run(1)  # eager: fine
+    torch.cuda.synchronize()
+    after_first = runner.carry()
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    with pytest.raises(RuntimeError):
+        runner.run(2)
+    torch.cuda.synchronize()
+    assert runner.graphs == []
+    assert (sqp_solve.launches, tick_epilogue.launches) == before
+    for f, a, b in zip(carry._fields, runner.carry(), after_first):
+        assert torch.equal(a, b), f

@@ -56,27 +56,44 @@ Phases, each fatal on failure (exit code 1, no result line):
      error p50 under 50 N; the plant process is killed at the end;
   8. point to goal: K1 at B=1 (N=32, 3 SQP iterations) against its plain
      version, then run_mpc for 300 steps with the goal chain of
-     examples/point_to_goal.py: K1 once per step plus the warm-up solve,
+     examples/point_to_goal.py (its first step eager, the rest replays of
+     captured CUDA graphs): K1 once per step plus the warm-up solve,
      K2 (the plant step) once per step, at least one goal switch, alive at
      the end, states finite; then K2 as that plant step (B=1) against its
-     plain version at phase 4's tolerances;
+     plain version at phase 4's tolerances; then run_mpc and
+     run_tracking_mpc (fig-8, N=32, 2 SQP iterations) each for 20 steps
+     against a Python loop over its tick: trace and final carry bit for
+     bit, K1 and K2 once a step; 20 replayed steps of each under
+     torch.cuda.set_sync_debug_mode("error") (no host sync); last, each
+     eager and graphed in turns in runs of 100 steps (measure.
+     single_lane_modes): ms a step by CUDA events, host-side launches a
+     step (at most 2 graphed), device kernels and busy share;
   9. the readable layer (solvers/sqp.py, ops/kkt.py, ops/riccati.py,
      mpc/readable_tick.py) on the card, at phase 3's B=64/N=64 inputs:
      the readable batch_solve in f32 against K1 (alphas equal, X and U
      within phase 3's scaled 6e-3 on every lane whose alphas agree; at
      most 2 of 64 lanes may flip an alpha from f32 rounding, each
      printed); the same solve in f64 on the card and on the CPU, within
-     1e-9 with equal alphas; then run_sampled_mpc(fused=False) for T
-     ticks (T from a two-tick timing, so the run takes about 40 s, at most
-     100 ticks) and fused="auto" (K1 + K2) from the same carry with the
-     same draws: the readable run launches neither kernel, the fused one
-     each once a tick; the first tick's winner equal and its u within the
-     scaled 6e-3; both finite; the readable run's mean tracking error
-     within 10% of the fused run's; ms per tick (host clock) and the
-     device kernels and copies of one tick (torch.profiler) printed for
-     both; last, three
-     sampled_tick calls with formulation="reference": the readable solver
-     (no K1 or K2 launch), the fallback warning logged, finite outputs;
+     1e-9 with equal alphas; then run_sampled_mpc(fused=False) for 20
+     ticks (the readable tick, its first tick eager, the rest replays of
+     one-tick CUDA graphs) and fused="auto" (K1 + K2) from the same carry
+     with the same draws: the readable run launches neither kernel, the
+     fused one each once a tick; the first tick's winner equal and its u
+     within the scaled 6e-3; both finite; the readable run's mean tracking
+     error within 10% of the fused run's; ms per tick (host clock)
+     printed for both; three sampled_tick calls with
+     formulation="reference": the readable solver (no K1 or K2 launch),
+     the fallback warning logged, finite outputs; then the readable loop
+     graphed against a Python loop over its tick for 3 ticks: trace,
+     carry and generator bit for bit; 2 replayed ticks under sync-debug
+     "error"; both timed in turns in runs of 2 ticks (measure.
+     readable_loop_modes: ms a tick by CUDA events, device kernels a tick,
+     busy share, the graph's capture-and-instantiate seconds and pool
+     bytes); last, a SampledController with formulation="reference" (the
+     readable tick, captured at warm-up) at B=8, N=16: 5 on_state calls
+     against 5 eager calls of its ControllerTick, outputs, state and
+     generator bit for bit, 3 replays under sync-debug "error", and at
+     B=64, N=64 graphed and eager in turns (measure.controller_timing);
  10. the URDF-controller / MJCF-plant loop: the controller on
      indy7_from_urdf(), the plant on indy7_mjcf() (MJCF inertials, axes
      and ranges, +inf velocity limits, which reach K2's constants
@@ -100,10 +117,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      inner iterations equal; X, U within 1e-9, pcg and admm within 1e-8
      after scaling each lane by max(1, max |value|)); last, the GATO
      method in the closed loop: run_sampled_mpc(fused=False) with
-     qp_backend="pcg" from phase 9's carry with its draws for 10 ticks,
+     qp_backend="pcg" from phase 9's carry with its draws for 10 ticks
+     (graphed),
      its mean tracking error within 20% of phase 9's readable Riccati
      tick over the same ticks (see PCG_LOOP_GATE), its ms a tick and the
-     winners' agreement printed;
+     winners' agreement printed; then the PCG loop graphed against its
+     eager loop and timed as phase 9's readable loop;
  12. the lane-sharded closed loop (indy7_mpc_tpu_torch/parallel/): 2 ranks,
      each a spawned process on cuda:0, over gloo (NCCL refuses two ranks
      of one group on one device); each rank runs K1 once a tick on its
@@ -205,13 +224,16 @@ fallback: a kernel that does not build or launch, or a horizon that does
 not fit K1's shared memory, fails its phase.
 
 The line before the last is the card's name and power limit, the one
-before it the kernels' JSON summary (``launches_by_phase`` has phase 11
+before it the kernels' JSON summary (``launches_by_phase`` has phase 8
+as ``run_mpc``, its 300 steps and the 20 held against the eager loop,
+and ``run_tracking_mpc``, its 20, phase 11
 as ``qp_backends``, with 0 launches of each, phase 12 as ``sharded``,
 the launches of (a) and (b) summed over the ranks, and phase 13 as
 ``recorded_runs``, both rows' launches summed, phase 14 as ``tools``,
 the launches of this process: the ranks' are their own, and phase 15 as
 ``bench``, bench.main()'s, and ``scale_bench``, the one-process sweep's);
-before those the eager and graphed timings of phases 5 and 6 (``graphs:``);
+before those the eager and graphed timings of phases 5, 6 and 8
+(``graphs:``; phases 9 and 11's are in ``readable:`` and ``qp_backends:``);
 the last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -228,7 +250,9 @@ INIT_Q = [1.5799, 0.0631, -1.1807, 1.0927, -0.6255, -0.0190]
 F_TRUE0 = [-60.0, 20.0, -40.0, 0.0, 0.0, 0.0]
 UDP_TICKS, REALTIME_SCALE, UDP_PORTS = 300, 1, (7611, 7610)  # plant, controller
 P2G_N, P2G_ITERS, P2G_STEPS = 32, 3, 300
-READABLE_BUDGET_S, READABLE_MAX_TICKS, MAX_FLIPS = 40.0, 100, 2
+# Phase 9: the readable loop's graphed run, the ticks held bit for bit
+# against the eager loop, and the ticks of each timed run in turns.
+READABLE_TICKS, READABLE_CHECK_TICKS, READABLE_MODE_TICKS, MAX_FLIPS = 20, 3, 2, 2
 QP_BACKENDS = ("riccati", "riccati_pscan", "pcg", "admm")
 PCG_CONVERGED_ITERS, PCG_LOOP_TICKS = 2000, 10
 # The PCG loop's mean tracking error against the Riccati tick's over the
@@ -781,8 +805,93 @@ def phase_point_to_goal(dev):
     _, k2_err = check_k2_call("K2 as run_mpc's plant step", sm, sm, cfg,
                               kernel_plant_args(final.x, trace.u[-1]))
     print(f"K2 as run_mpc's plant step B=1: max abs err {k2_err:.3e}", flush=True)
-    return launches, {"B": 1, "N": P2G_N, "iters": P2G_ITERS, "max_abs_err": err,
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+
+    # Both single-lane loops graphed against their eager loops, replayed
+    # without a host sync, and timed eager and graphed in turns.
+    counts, graphs = {}, {}
+    for loop in ("run_mpc", "run_tracking_mpc"):
+        counts[loop], graphs[loop] = single_lane_graphs(dev, loop)
+    counts["run_mpc"] = {k: n + counts["run_mpc"][k] for k, n in launches.items()}
+    return counts, {"B": 1, "N": P2G_N, "iters": P2G_ITERS, "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                    "share_of_bound": bound / ms}, graphs
+
+
+def tree_leaves(tree):
+    import torch
+
+    if tree is None or isinstance(tree, torch.Tensor):
+        return [] if tree is None else [tree]
+    return [v for t in tree for v in tree_leaves(t)]
+
+
+def check_same_bits(label, trace, rows, carry=None, want_carry=None):
+    """A graphed run's stacked trace against the eager loop's rows, and its
+    final carry against the eager one, bit for bit."""
+    import torch
+
+    for f in trace._fields:
+        check(torch.equal(getattr(trace, f), torch.stack([getattr(r, f) for r in rows])),
+              f"{label}: graphed trace {f} differs from the eager loop's")
+    if carry is not None:
+        got, want = tree_leaves(carry), tree_leaves(want_carry)
+        check(len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{label}: graphed final carry differs from the eager loop's")
+
+
+def replay_without_sync(label, replay):
+    """``replay()`` (ticks that replay captured graphs only) under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    synchronizing operation."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay()
+    except RuntimeError as e:
+        raise SmokeFailure(f"{label}: a replayed tick synchronizes with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def single_lane_graphs(dev, loop):
+    """``run_mpc`` / ``run_tracking_mpc`` (measure.single_lane_loop's
+    configuration) for GRAPH_TICKS ticks, graphed, against a Python loop
+    over its tick: trace and final carry bit for bit, K1 and K2 once a tick
+    (run_mpc's warm-up solve one K1 more); then GRAPH_TICKS replayed ticks
+    of a runner of the same tick under sync-debug "error"; last, the eager
+    and the graphed loop in turns, GRAPH_CHUNK ticks a run."""
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.mpc.graphed import TickRunner
+
+    make, run = measure.single_lane_loop(dev, loop)
+    tick, carry = make()
+    rows = []
+    for _ in range(GRAPH_TICKS):
+        carry, row = tick(carry)
+        rows.append(row)
+    reset_counts()
+    final, trace = run(GRAPH_TICKS)
+    launches = read_counts()
+    warm = int(loop == "run_mpc")
+    want = {"sqp_solve": GRAPH_TICKS + warm, "tick_epilogue": GRAPH_TICKS}
+    check(launches == want, f"{loop} graphed: launches {launches}, want {want}")
+    check_same_bits(f"{loop} graphed", trace, rows, final, carry)
+    runner = TickRunner(*make(), GRAPH_TICKS)
+    runner.run(2)
+    replay_without_sync(f"{loop} graphed", lambda: runner.run(GRAPH_TICKS))
+    timing = measure.single_lane_modes(dev, loop, GRAPH_CHUNK)
+    host = timing["graphed"]["host_launches_per_tick"]
+    check(0 < host <= 2, f"{loop}: the graphed loop issues {host:.2f} host-side launches a "
+          f"tick over {GRAPH_CHUNK} ticks, want (0, 2]")
+    print(f"{loop} graphed vs eager: trace and final carry equal bit for bit over "
+          f"{GRAPH_TICKS} ticks, launches {launches}, {GRAPH_TICKS} replayed ticks without a "
+          f"host sync; eager {timing['eager']['us_per_tick'] / 1e3:.4f} ms/step, graphed "
+          f"{timing['graphed']['us_per_tick'] / 1e3:.4f} ms/step (CUDA events); "
+          f"{card_line()}", flush=True)
+    return launches, timing
 
 
 def fig8_reference():
@@ -875,7 +984,7 @@ def phase_readable(dev):
     x0 = initial_state(dev)
     carry0 = init_loop_carry(model, mcfg, scfg, x0, F_TRUE0, gen)
     draws = [draw_tick(gen, scfg, PERTURBED_PLANT, dev, torch.float32)
-             for _ in range(READABLE_MAX_TICKS)]
+             for _ in range(READABLE_TICKS)]
     ref = fig8_reference()
 
     def loop(ticks, fused):
@@ -883,11 +992,7 @@ def phase_readable(dev):
                                plant_cfg=PERTURBED_PLANT, carry0=carry0, draws=draws[:ticks],
                                fused=fused)[1]
 
-    t0 = time.perf_counter()
-    loop(2, False)
-    torch.cuda.synchronize()
-    est = (time.perf_counter() - t0) / 2
-    T = int(min(READABLE_MAX_TICKS, max(5, READABLE_BUDGET_S // est)))
+    T = READABLE_TICKS
     runs = {}
     for name, fused in (("readable", False), ("two-kernel", "auto")):
         reset_counts()
@@ -903,8 +1008,8 @@ def phase_readable(dev):
         for f, v in trace._asdict().items():
             if v.is_floating_point():
                 check(bool(torch.isfinite(v).all()), f"{name} tick: trace {f} not finite")
-        runs[name] = (trace, ms, counts, measure.profile_device(lambda n: loop(n, fused), 1))
-    (tr, r_ms, _, r_prof), (tf, f_ms, f_counts, f_prof) = runs["readable"], runs["two-kernel"]
+        runs[name] = (trace, ms, counts)
+    (tr, r_ms, _), (tf, f_ms, f_counts) = runs["readable"], runs["two-kernel"]
     check(int(tr.best_idx[0]) == int(tf.best_idx[0]),
           f"first tick's winner: readable {int(tr.best_idx[0])}, two-kernel {int(tf.best_idx[0])}")
     du = ((tr.u[0] - tf.u[0]).abs().max() / tf.u[0].abs().max().clamp(min=1.0)).item()
@@ -912,13 +1017,11 @@ def phase_readable(dev):
     te_r = tr.tracking_error.double().mean().item()
     te_f = tf.tracking_error.double().mean().item()
     same = int((tr.best_idx == tf.best_idx).sum())
-    print(f"readable tick (fused=False) B={B} N={N} perturbed plant, {T} ticks: "
-          f"{r_ms:.1f} ms/tick (host clock); profiled tick {r_prof['kernel_launches_per_tick']:g} "
-          f"device kernels and copies, {r_prof['device_ms_per_tick']:.2f} ms device time, busy "
-          f"{100 * r_prof['busy_share']:.1f}%; two-kernel tick: {f_ms:.3f} ms/tick, "
-          f"{f_prof['kernel_launches_per_tick']:g} kernels and copies; first tick u scaled "
-          f"diff {du:.3e}; winners equal on {same} of {T} ticks; mean tracking error readable "
-          f"{te_r:.4f} m, two-kernel {te_f:.4f} m", flush=True)
+    print(f"readable tick (fused=False) B={B} N={N} perturbed plant, {T} ticks (the first "
+          f"eager, then replays of one-tick graphs): {r_ms:.1f} ms/tick (host clock, the first "
+          f"tick and the capture included); two-kernel tick: {f_ms:.3f} ms/tick; first tick u "
+          f"scaled diff {du:.3e}; winners equal on {same} of {T} ticks; mean tracking error "
+          f"readable {te_r:.4f} m, two-kernel {te_f:.4f} m", flush=True)
     check(abs(te_r - te_f) <= 0.1 * te_f, f"readable mean tracking {te_r:.4f} m not within "
           f"10% of the two-kernel run's {te_f:.4f} m")
 
@@ -949,16 +1052,123 @@ def phase_readable(dev):
     print(f"sampled_tick formulation='reference': 3 ticks on the readable solver, finite, "
           f"no kernel launch; warning: {records[0].getMessage() if records else None}",
           flush=True)
+    # 5. The readable loop graphed against the eager one, its replays
+    # without a host sync, both timed in turns; the same for the readable
+    # controller tick (outside K1's coverage).
+    modes = readable_graphs(dev, "riccati")
+    ctl_counts, ctl_modes = readable_controller_graph(dev)
     loop9 = {"trace": tr, "ticks": T, "ms_per_tick": r_ms, "carry0": carry0, "draws": draws,
              "x0": x0, "ref": ref}
     return f_counts, loop9, {"ticks": T, "readable_ms_per_tick": r_ms, "two_kernel_ms_per_tick": f_ms,
-                      "readable_launches_per_tick": r_prof["kernel_launches_per_tick"],
-                      "readable_device_ms_per_tick": r_prof["device_ms_per_tick"],
-                      "readable_busy_share": r_prof["busy_share"],
-                      "two_kernel_launches_per_tick": f_prof["kernel_launches_per_tick"],
+                      "readable_modes": modes, "readable_controller_modes": ctl_modes,
+                      "readable_controller_launches": ctl_counts,
                       "tracking_readable_m": te_r, "tracking_two_kernel_m": te_f,
                       "alpha_flips": int(flips.size), "solve_f32_ms": solve_s * 1e3,
                       "solve_f64_ms": solve64_s * 1e3, "f64_card_vs_cpu": d64}
+
+
+def readable_graphs(dev, backend):
+    """The readable loop on the QP backend ``backend`` (measure.fig8_loop's
+    configuration at B, N, 2 SQP iterations): READABLE_CHECK_TICKS ticks
+    graphed (``LoopTickRunner``, one tick a graph, as run_sampled_mpc runs
+    it) against a Python loop over the same tick from a generator seeded
+    alike: trace, carry and generator bit for bit, neither kernel launched;
+    then two replayed ticks under sync-debug "error"; last, the eager and
+    the graphed loop in turns, READABLE_MODE_TICKS ticks a run, with the
+    graph's capture seconds and pool bytes (measure.readable_loop_modes)."""
+    import torch
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.config import SQPConfig
+    from indy7_mpc_tpu_torch.mpc.graphed import LoopTickRunner
+
+    sqp = SQPConfig(max_iters=SQP_ITERS, qp_backend=backend)
+    tick, carry = measure.fig8_loop(dev, B, N, sqp, fused=False)
+    rows = []
+    for _ in range(READABLE_CHECK_TICKS):
+        carry, row = tick(carry)
+        rows.append(row)
+    tick_g, carry_g = measure.fig8_loop(dev, B, N, sqp, fused=False)
+    runner = LoopTickRunner(tick_g, carry_g, READABLE_CHECK_TICKS, ticks_per_graph=1)
+    reset_counts()
+    trace = runner.run(READABLE_CHECK_TICKS)
+    counts = read_counts()
+    check(all(n == 0 for n in counts.values()), f"readable {backend} graphed: launches {counts}")
+    check_same_bits(f"readable {backend}", trace, rows, runner.carry(), carry)
+    check(torch.equal(tick_g.generator.get_state(), tick.generator.get_state()),
+          f"readable {backend}: the generator after the graphed ticks differs from the eager "
+          "loop's")
+    replay_without_sync(f"readable {backend}", lambda: runner.run(2))
+    modes = measure.readable_loop_modes(dev, B, N, READABLE_MODE_TICKS, backend)
+    print(f"readable loop ({backend}) graphed vs eager: trace, carry and generator equal bit "
+          f"for bit over {READABLE_CHECK_TICKS} ticks, 2 replayed ticks without a host sync; "
+          f"eager {modes['eager']['us_per_tick'] / 1e3:.1f} ms/tick, graphed "
+          f"{modes['graphed']['us_per_tick'] / 1e3:.1f} ms/tick (CUDA events), "
+          f"{modes['graphed']['device_launches_per_tick']:.0f} device kernels a tick, capture "
+          f"{modes['graphed']['capture_s']:.2f} s, pool {modes['graphed']['pool_bytes']} bytes; "
+          f"{card_line()}", flush=True)
+    return modes
+
+
+def readable_controller_graph(dev):
+    """A controller outside K1's coverage (formulation "reference": the
+    readable tick) at B=8, N=16 captures its tick at warm-up: 5
+    ``on_state`` calls (graph replays) against 5 eager calls of the same
+    ``ControllerTick`` from a controller built alike: every output, the
+    final state and the generator bit for bit, neither kernel launched;
+    then 3 replays under sync-debug "error"; last, the readable controller
+    at B=64, N=64 graphed and eager in turns, 5 ticks each
+    (measure.controller_timing)."""
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.config import CostConfig, MPCConfig, SampleConfig, SQPConfig
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.runtime import SampledController
+
+    ref = fig8_reference()
+    make = lambda: SampledController(
+        indy7(torch.float32), CostConfig(formulation="reference"), SQPConfig(max_iters=SQP_ITERS),
+        MPCConfig(N=16, dt=DT), SampleConfig(batch_size=8, f_ext_std=20.0, f_ext_resample_std=1.0),
+        ref, seed=5, f_ext_actual=F_TRUE0[:3], device=dev)
+    ctl, ref_ctl = make(), make()
+    check(ctl.runner.graph is not None, "the readable controller did not capture its tick")
+    rng = np.random.default_rng(8)
+    xs = [(np.r_[INIT_Q, np.zeros(6)] + 0.01 * rng.normal(size=12)).astype(np.float32)
+          for _ in range(5)]
+    reset_counts()
+    got = []
+    for x in xs:
+        u, info = ctl.on_state(x, DT)
+        got.append(np.r_[u, info["best_idx"], info["f_est"], info["ee_ref"], info["ee_pos"],
+                         info["tracking_error"]].astype(np.float32))
+    counts = read_counts()
+    check(all(n == 0 for n in counts.values()), f"readable controller: launches {counts}")
+    X, U, f = ref_ctl.X_best.clone(), ref_ctl.U_best.clone(), ref_ctl.f_batch.clone()
+    x_last, u_last = None, ref_ctl.u_last.clone()
+    for i, (x, g) in enumerate(zip(xs, got)):
+        xd = torch.as_tensor(x, device=dev)
+        x_last = xd if x_last is None else x_last
+        out, host = ref_ctl._tick(i + 1, xd, x_last, u_last, X, U, f)
+        check(np.array_equal(g, host.cpu().numpy()),
+              f"readable controller: tick {i}'s outputs differ from the eager tick's")
+        X, U, f, x_last, u_last = out.X_best, out.U_best, out.f_batch, xd, out.u
+    for name, want in (("X_best", X), ("U_best", U), ("f_batch", f), ("x_last", x_last),
+                       ("u_last", u_last)):
+        check(torch.equal(getattr(ctl, name), want),
+              f"readable controller: {name} differs from the eager tick's")
+    check(torch.equal(ctl.generator.get_state(), ref_ctl.generator.get_state()),
+          "readable controller: the generator differs from the eager tick's")
+    replay_without_sync("readable controller",
+                        lambda: [ctl.runner.graph.replay() for _ in range(3)])
+    timing = measure.controller_timing(dev, warm=1, steady=5,
+                                       cost_cfg=CostConfig(formulation="reference"))
+    print(f"readable controller (formulation='reference') graphed vs eager: outputs, state and "
+          f"generator equal bit for bit over 5 ticks at B=8 N=16, 3 replays without a host sync; "
+          f"at B={B} N={N} p50 graphed {timing['graphed']['solve_time_us_p50'] / 1e3:.1f} ms, "
+          f"eager {timing['eager']['solve_time_us_p50'] / 1e3:.1f} ms; {card_line()}", flush=True)
+    return counts, timing
 
 
 def phase_mjcf_plant(dev):
@@ -1190,13 +1400,17 @@ def phase_qp_backends(dev, loop9):
     te_r = ric_trace.tracking_error[:ticks].double().mean().item()
     same = int((tp.best_idx == ric_trace.best_idx[:ticks]).sum())
     print(f"PCG closed loop (fused=False, qp_backend='pcg') B={B} N={N} perturbed plant, "
-          f"{ticks} ticks: {ms:.1f} ms/tick (host clock); mean tracking error {te_p:.4f} m "
-          f"against the readable Riccati tick's {te_r:.4f} m; winners equal on {same} of "
-          f"{ticks} ticks", flush=True)
+          f"{ticks} ticks (the first eager, then replays of one-tick graphs): {ms:.1f} ms/tick "
+          f"(host clock, the first tick and the capture included); mean tracking error "
+          f"{te_p:.4f} m against the readable Riccati tick's {te_r:.4f} m; winners equal on "
+          f"{same} of {ticks} ticks", flush=True)
     check(abs(te_p - te_r) <= PCG_LOOP_GATE * te_r, f"PCG loop mean tracking {te_p:.4f} m "
           f"not within {PCG_LOOP_GATE:.0%} of the readable Riccati tick's {te_r:.4f} m")
     out["pcg_loop"] = {"ticks": ticks, "ms_per_tick": ms, "tracking_pcg_m": te_p,
                        "tracking_riccati_m": te_r, "winners_equal": same}
+    # The PCG loop graphed against its eager loop, bit for bit, replayed
+    # without a host sync, and timed in turns.
+    out["pcg_loop"]["modes"] = readable_graphs(dev, "pcg")
 
     counts = read_counts()
     check(all(n == 0 for n in counts.values()), f"QP backends launched kernels: {counts}")
@@ -2014,7 +2228,8 @@ def main():
     phases["runtime_in_process"], graphs["controller"] = timed(
         "runtime_in_process", phase_runtime_inprocess, dev)
     phases["runtime_udp"] = timed("runtime_udp", phase_runtime_udp, dev)
-    phases["run_mpc"], single_lane = timed("run_mpc", phase_point_to_goal, dev)
+    counts8, single_lane, graphs["single_lane"] = timed("run_mpc", phase_point_to_goal, dev)
+    phases.update(counts8)
     phases["readable_vs_two_kernel"], loop9, readable = timed(
         "readable_vs_two_kernel", phase_readable, dev)
     phases["mjcf_plant"] = timed("mjcf_plant", phase_mjcf_plant, dev)

@@ -2,7 +2,8 @@
 a long host-dispatch run.
 
 Usage: python3 -m indy7_mpc_tpu_torch.measure [--out PATH]
-           [--runtime [--stats-dir DIR] | --udp | --k2 [--baseline DIR] | --readable | --qp]
+           [--runtime [--stats-dir DIR] | --udp | --k2 [--baseline DIR] | --readable | --qp
+            | --loops]
 
 Without ``--runtime`` it prints, and writes as JSON to ``--out``:
   * the card's name and power limit (nvidia-smi);
@@ -81,6 +82,15 @@ the device kernels and device ms of one call (``torch.profiler``'s raw
 CUDA events), and the host syncs (``torch.cuda.set_sync_debug_mode``),
 with the CG and ADMM iteration counts.
 
+With ``--loops`` it instead times the other loops that replay captured
+graphs, each eager and graphed in turns (``modes_in_turns``): the
+single-lane ticks of ``run_mpc`` (N=32, 3 SQP iterations) and
+``run_tracking_mpc`` (N=32, 2) in runs of 100 ticks (``single_lane_modes``),
+the readable tick at B=64, N=64 on the Riccati and the PCG backends in
+runs of 2 ticks with its graph's capture seconds and pool bytes
+(``readable_loop_modes``), and the readable controller tick
+(formulation "reference") over 5 ticks of each (``controller_timing``).
+
 It checks nothing; ``chip_smoke.py`` is the correctness run.  Exits 1
 without a CUDA device.
 """
@@ -101,7 +111,7 @@ import torch
 from .config import PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig
 from .examples.protocol import synchronize
 from .models import indy7
-from .mpc import init_loop_carry, make_fused_loop_tick, reference
+from .mpc import init_loop_carry, make_loop_tick, reference
 from .mpc.graphed import LoopTickRunner
 from .ops import lane_rbd as LR
 from .ops.kernels import sqp_kernel as K1
@@ -256,45 +266,113 @@ def k1_variants(dev, reps=50, B=64, N=64, iters=2):
     return out
 
 
-def fig8_loop(dev, B, N=64):
+def fig8_loop(dev, B, N=64, sqp_cfg=None, fused=True):
     """The closed-loop tick of the fig-8 configuration (N=64, 2 SQP
     iterations, perturbed plant) at B lanes: (the tick module, its cold
-    carry), both drawing from one generator seeded 42."""
+    carry), both drawing from one generator seeded 42.  ``sqp_cfg``
+    replaces the solver's configuration; ``fused=False`` gives the
+    readable tick."""
     ref = reference.with_padding(
         reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45],
                           period=10, dt=DT, cycles=1), 200)
     model = indy7(torch.float32, dev)
     mpc_cfg, sample_cfg = MPCConfig(N=N, dt=DT), SampleConfig(batch_size=B)
     gen = torch.Generator(device=dev).manual_seed(42)
-    tick = make_fused_loop_tick(
-        model, CostConfig(), SQPConfig(max_iters=2), mpc_cfg, sample_cfg,
+    tick = make_loop_tick(
+        model, CostConfig(), sqp_cfg or SQPConfig(max_iters=2), mpc_cfg, sample_cfg,
         torch.as_tensor(ref, dtype=torch.float32, device=dev),
-        plant_cfg=PERTURBED_PLANT, generator=gen,
+        plant_cfg=PERTURBED_PLANT, generator=gen, fused=fused,
     )
     x0 = torch.zeros(12, dtype=torch.float32, device=dev)
     x0[:6] = torch.tensor(INIT_Q)
     return tick, init_loop_carry(model, mpc_cfg, sample_cfg, x0, F_TRUE0, gen)
 
 
+def eager_loop(tick, carry, ticks):
+    """``run()``: ``ticks`` eager calls of ``tick`` (a Python loop, the port
+    before its graphs), each run going on from the last one's carry."""
+    state = [carry]
+
+    def run():
+        for _ in range(ticks):
+            state[0], _ = tick(state[0])
+
+    return run
+
+
 def loop_modes(dev, B, ticks=100):
     """The fig-8 closed-loop tick at B lanes, eager (a Python loop over the
-    tick module, the port before its graphs) and graphed
-    (``mpc.graphed.LoopTickRunner``, as ``run_sampled_mpc`` runs it), each
-    a run of ``ticks`` ticks: µs a tick by CUDA events (no device sleep:
-    the host's launch path is in it) and by the host clock, two runs each
-    in turns (eager, graphed, graphed, eager) after a warm-up run (the
-    graphed one captures), then one more run of each under the profiler:
-    host-side launches, device kernels and copies, and device µs a tick,
-    and the busy share (device µs over the CUDA-event µs)."""
+    tick module) and graphed (``mpc.graphed.LoopTickRunner``, as
+    ``run_sampled_mpc`` runs it), in turns (:func:`modes_in_turns`)."""
     tick, carry = fig8_loop(dev, B)
     runner = LoopTickRunner(tick, carry, ticks)
+    return modes_in_turns(f"closed-loop tick B={B} N=64 perturbed", ticks, {
+        "eager": eager_loop(tick, carry, ticks), "graphed": lambda: runner.run(ticks)})
 
-    def eager():
-        nonlocal carry
-        for _ in range(ticks):
-            carry, _ = tick(carry)
 
-    modes = {"eager": eager, "graphed": lambda: runner.run(ticks)}
+def readable_loop_modes(dev, B=64, N=64, ticks=2, qp_backend="riccati"):
+    """The readable fig-8 tick (``make_loop_tick(fused=False)`` on the QP
+    backend ``qp_backend``) at B lanes and horizon N, eager and graphed (on
+    ``LoopTickRunner`` one tick a graph, as ``run_sampled_mpc`` runs it),
+    in turns (:func:`modes_in_turns`); the graphed entry adds its graph's
+    capture-and-instantiate seconds and pool bytes."""
+    sqp_cfg = SQPConfig(max_iters=2, qp_backend=qp_backend)
+    tick, carry = fig8_loop(dev, B, N, sqp_cfg, fused=False)
+    runner = LoopTickRunner(tick, carry, ticks, ticks_per_graph=1)
+    out = modes_in_turns(f"readable tick ({qp_backend}) B={B} N={N} perturbed", ticks, {
+        "eager": eager_loop(tick, carry, ticks), "graphed": lambda: runner.run(ticks)})
+    g = runner.graphs[0]
+    out["graphed"].update(capture_s=g.seconds, pool_bytes=g.pool_bytes)
+    print(f"  its graph: {g.seconds:.2f} s to capture and instantiate, "
+          f"{g.pool_bytes / 2**20:.1f} MiB pool", flush=True)
+    return out
+
+
+def single_lane_loop(dev, loop):
+    """``run_mpc`` at the point-to-goal configuration (N=32, 3 SQP
+    iterations, examples/point_to_goal.py's goal chain, from the state at
+    zero) or ``run_tracking_mpc`` on the fig-8 (N=32, 2 SQP iterations,
+    from INIT_Q): ``(make, run)``, ``make()`` giving its tick and carry
+    (``make_mpc_tick``, ``make_tracking_tick``), ``run(n)`` the loop's
+    ``n`` ticks."""
+    from .mpc import run_mpc, run_tracking_mpc
+    from .mpc.point_to_goal import make_mpc_tick
+    from .mpc.tracking import make_tracking_tick
+
+    model, x0 = indy7(torch.float32, dev), torch.zeros(12, dtype=torch.float32, device=dev)
+    if loop == "run_mpc":
+        ee0 = torch.stack(LR.ee_pos(LR.static_model(model), list(x0[:6]))).cpu().numpy()
+        goals = np.stack([ee0 + [0.10, -0.10, -0.10], ee0 + [-0.15, 0.05, -0.20],
+                          ee0 + [0.05, 0.15, -0.05]])
+        args = (model, CostConfig(), SQPConfig(max_iters=3), MPCConfig(N=32, dt=DT), x0, goals)
+        return lambda: make_mpc_tick(*args), lambda n: run_mpc(*args, n)
+    x0[:6] = torch.tensor(INIT_Q)
+    ref = reference.with_padding(reference.figure8(
+        A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT, cycles=2), 200)
+    args = (model, CostConfig(), SQPConfig(max_iters=2), MPCConfig(N=32, dt=DT), x0, ref)
+    return lambda: make_tracking_tick(*args), lambda n: run_tracking_mpc(*args, n)
+
+
+def single_lane_modes(dev, loop, ticks=100):
+    """``run_mpc``'s or ``run_tracking_mpc``'s tick (:func:`single_lane_loop`),
+    eager and graphed (on ``mpc.graphed.TickRunner``, as the loop runs it),
+    in turns (:func:`modes_in_turns`)."""
+    from .mpc.graphed import TickRunner
+
+    tick, carry = single_lane_loop(dev, loop)[0]()
+    runner = TickRunner(tick, carry, ticks)
+    return modes_in_turns(f"{loop} tick B=1 N=32", ticks, {
+        "eager": eager_loop(tick, carry, ticks), "graphed": lambda: runner.run(ticks)})
+
+
+def modes_in_turns(label, ticks, modes):
+    """``modes`` (name -> a run of ``ticks`` ticks, eager and graphed), each
+    run once as a warm-up (the graphed one captures), then in turns
+    (eager, graphed, graphed, eager): µs a tick by CUDA events (no device
+    sleep: the host's launch path is in it) and by the host clock; then
+    one more run of each under the profiler: host-side launches, device
+    kernels and copies, and device µs a tick, and the busy share (device
+    µs over the CUDA-event µs)."""
     for fn in modes.values():
         fn()
     out = {name: {"event_us": [], "host_us": []} for name in modes}
@@ -315,7 +393,7 @@ def loop_modes(dev, B, ticks=100):
         o.update(host_launches_per_tick=host / ticks, device_launches_per_tick=kernels / ticks,
                  device_us_per_tick=device_ms * 1e3 / ticks,
                  busy_share=device_ms * 1e3 / ticks / o["us_per_tick"] if kernels else None)
-    print(f"closed-loop tick B={B} N=64 perturbed, {ticks} ticks a run: " + "; ".join(
+    print(f"{label}, {ticks} ticks a run: " + "; ".join(
         f"{name} {o['us_per_tick']:.1f} us/tick (CUDA events, runs "
         + "/".join(f"{v:.1f}" for v in o["event_us"]) + "; host clock "
         + "/".join(f"{v:.1f}" for v in o["host_us"])
@@ -470,8 +548,8 @@ def call_costs(fn, reps=3):
     """One call of ``fn`` on the card, costed: host-clock ms and CUDA-event
     ms from its first launch to its last, and its host syncs (each
     synchronizing CUDA operation warns under ``set_sync_debug_mode``),
-    means over ``reps`` calls after a warm-up (no device sleep: the
-    readable layer reads the host inside a call); the device kernels and
+    means over ``reps`` calls after a warm-up (no device sleep: run
+    eagerly, PCG and ADMM read the host inside a call); the device kernels and
     device ms of one more call (:func:`launch_work`).
     Returns (dict, the warm-up call's result)."""
     import warnings
@@ -553,24 +631,25 @@ def qp_section(dev, B=64, N=64):
     return out
 
 
-def runtime_controller(dev, B=64, N=64):
+def runtime_controller(dev, B=64, N=64, cost_cfg=None):
     """The controller of the host-dispatch goldens (examples/record_runs.py:
     B=64, N=64, 2 SQP iterations, fig-8 of 10 cycles after 200 rows of
     padding, true wrench [-60, 20, -40] N; tools/latency_decomp.py's) on
-    ``dev``, at B lanes and horizon N; constructing it runs the warm-up
-    tick."""
+    ``dev``, at B lanes and horizon N (``cost_cfg`` in place of the
+    default cost, e.g. the "reference" formulation, which K1 does not
+    cover); constructing it runs the warm-up tick."""
     ref = reference.with_padding(
         reference.figure8(A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45],
                           period=10, dt=DT, cycles=10), 200)
     return SampledController(
-        indy7(torch.float32), CostConfig(), SQPConfig(max_iters=2),
+        indy7(torch.float32), cost_cfg or CostConfig(), SQPConfig(max_iters=2),
         MPCConfig(N=N, dt=DT), SampleConfig(batch_size=B, f_ext_std=20.0,
                                             f_ext_resample_std=1.0),
         ref, f_ext_actual=F_TRUE0[:3], device=dev,
     )
 
 
-def controller_timing(dev, warm=10, steady=50):
+def controller_timing(dev, warm=10, steady=50, cost_cfg=None):
     """The controller tick without a plant (the same host state every
     tick), graphed (``SampledController.on_state``: its own host-clock
     ``solve_time_us``) and eager (the controller's ``ControllerTick`` called
@@ -578,8 +657,9 @@ def controller_timing(dev, warm=10, steady=50):
     ``on_state`` ran before its graph), in turns, one tick of each after
     the other; p50/p95 over ``steady`` ticks of each after ``warm``, and
     one tick of each under the profiler (host-side launches, device
-    kernels and copies, device µs)."""
-    ctl = runtime_controller(dev)
+    kernels and copies, device µs).  ``cost_cfg``: the controller's cost
+    (:func:`runtime_controller`)."""
+    ctl = runtime_controller(dev, cost_cfg=cost_cfg)
     x = np.zeros(12, np.float32)
     x[:6] = INIT_Q
 
@@ -610,7 +690,8 @@ def controller_timing(dev, warm=10, steady=50):
                      "solve_time_us_p95": float(np.percentile(us, 95)),
                      "host_launches": host, "device_launches": kernels,
                      "device_us": device_ms * 1e3}
-    print(f"controller tick B=64 N=64, {steady} ticks of each in turns: " + "; ".join(
+    print(f"controller tick ({type(ctl._tick.sampled).__name__}) B=64 N=64, {steady} ticks of "
+          "each in turns: " + "; ".join(
         f"{name} p50 {o['solve_time_us_p50']:.1f} us, p95 {o['solve_time_us_p95']:.1f} us, "
         f"{o['host_launches']} host-side launches, {o['device_launches']} device kernels and "
         f"copies, {o['device_us']:.1f} us device time" for name, o in out.items()), flush=True)
@@ -870,6 +951,8 @@ def main(argv=None):
                     help="take the readable tick apart instead")
     ap.add_argument("--qp", action="store_true",
                     help="time the QP step alone on each readable backend instead")
+    ap.add_argument("--loops", action="store_true",
+                    help="time the single-lane and readable loops, eager and graphed, instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -892,6 +975,14 @@ def main(argv=None):
         result["readable"] = readable_section(dev)
     elif args.qp:
         result["qp"] = qp_section(dev)
+    elif args.loops:
+        result["loops"] = {
+            **{loop: single_lane_modes(dev, loop) for loop in ("run_mpc", "run_tracking_mpc")},
+            **{f"readable_{be}": readable_loop_modes(dev, qp_backend=be)
+               for be in ("riccati", "pcg")},
+            "readable_controller": controller_timing(
+                dev, warm=1, steady=5, cost_cfg=CostConfig(formulation="reference")),
+        }
     else:
         print(f"K1: {K1.THREADS} threads a block by default, "
               f"{K1.shared_bytes(64)} bytes of shared memory at N=64 (N <= {K1.MAX_N})",

@@ -2,9 +2,13 @@
 ``indy7_mpc_tpu/mpc/point_to_goal.py``).
 
 Re-design of the reference's offline MPC loops (src/osqp_mpc.py:14-71,
-src/gato_mpc.py:53-150) as a Python loop over ticks that never reads a
-device value on the host: SQP solve, plant step, receding-horizon shift,
-goal chain advance and divergence freeze are all tensor operations.
+src/gato_mpc.py:53-150) as a tick that never reads a device value on the
+host: SQP solve, plant step, receding-horizon shift, goal chain advance
+and divergence freeze are all tensor operations.  The TPU package scans
+the tick in one ``lax.scan``; here it runs on the fixed buffers of
+``mpc/graphed.py``'s ``TickRunner``: on CUDA the warm-up solve and the
+first tick eagerly, every later tick a replay of captured CUDA graphs; on
+the CPU every tick eagerly.
 
 Semantics parity:
   * goal switch when EE-goal distance < goal_switch_dist, cycling through
@@ -19,7 +23,9 @@ Semantics parity:
 On CUDA each step launches the SQP kernel (K1) at B = 1, carrying the
 solver's rho in ``SolverState``, and the tick-epilogue kernel (K2) at
 B = 1 as the plant step; the warm-up solve launches K1 once more.  On the
-CPU both run their plain versions in x0's dtype.
+CPU both run their plain versions in x0's dtype.  An injected
+``solve_fn`` is captured with the tick: one that reads the host makes the
+capture raise, as ``lax.scan`` refuses an untraceable solver.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from ..models.robot import RobotModel
 from ..ops import lane_rbd as LR
 from ..sim.kernel_plant import kernel_plant_step
 from ..solvers.sqp import SolverState
+from .graphed import TickRunner
 
 
 class MPCCarry(NamedTuple):
@@ -51,37 +58,27 @@ class MPCTrace(NamedTuple):
     sqp_iters: torch.Tensor  # (T,)
 
 
-def run_mpc(
+def make_mpc_tick(
     model: RobotModel,
     cost_cfg: CostConfig,
     sqp_cfg: SQPConfig,
     mpc_cfg: MPCConfig,
     x0,
     endpoints,
-    num_steps: int,
     wrench_world: Optional[torch.Tensor] = None,
     solve_fn=None,
 ):
-    """Closed-loop point-to-goal MPC on x0's device.
-
-    Args:
-      x0: (nx,) initial plant state.
-      endpoints: (G, 3) chain of EE goals, cycled on arrival.
-      num_steps: control ticks.
-      wrench_world: optional true disturbance wrench on the plant.
-      solve_fn: optional ``(xs, goals, X, U, state) -> SQPResult``
-        single-lane solver override; by default the SQP kernel at B = 1,
-        or the readable solver outside its coverage
-        (``solvers.select.default_single_solve_fn``).
-
-    Returns (final MPCCarry, MPCTrace stacked over ticks).
-    """
+    """:func:`run_mpc`'s tick and its carry after the warm-up solve, on x0's
+    device in the kernels' dtype (float32 on CUDA, x0's on the CPU):
+    ``(tick, carry)`` with ``tick(carry, draws=None) -> (carry, MPCTrace
+    row)``.  A Python loop over the tick is the eager loop; ``run_mpc``
+    ticks it on a ``graphed.TickRunner``."""
     from ..solvers.select import default_single_solve_fn
 
     N, dt = mpc_cfg.N, mpc_cfg.dt
     nx, nu = model.nx, model.nu
-    dtype, device = x0.dtype, x0.device
-    kdt = torch.float32 if device.type == "cuda" else dtype
+    device = x0.device
+    kdt = torch.float32 if device.type == "cuda" else x0.dtype
     endpoints = torch.as_tensor(endpoints, dtype=kdt, device=device)
     if wrench_world is not None:
         wrench_world = torch.as_tensor(wrench_world, dtype=kdt, device=device)
@@ -94,7 +91,7 @@ def run_mpc(
     def goal_of(idx):
         return endpoints.index_select(0, idx.reshape(1))[0]
 
-    def tick(carry: MPCCarry):
+    def tick(carry: MPCCarry, draws=None):
         cur_ee = torch.stack(LR.ee_pos(sm, list(carry.x[:6])))
         dist = torch.linalg.norm(cur_ee - goal_of(carry.goal_idx))
 
@@ -128,9 +125,9 @@ def run_mpc(
             state=SolverState(*(None if n is None else sel(n, o)
                                 for n, o in zip(res.state, carry.state))),
         )
-        out = (new_carry.x, sel(u, torch.zeros_like(u)), dist, goal_idx,
-               res.stats.iterations)
-        return new_carry, out
+        return new_carry, MPCTrace(x=new_carry.x, u=sel(u, torch.zeros_like(u)),
+                                   goal_dist=dist, goal_idx=goal_idx,
+                                   sqp_iters=res.stats.iterations)
 
     X0 = torch.zeros((N, nx), dtype=kdt, device=device)
     X0[0] = x0
@@ -146,13 +143,42 @@ def run_mpc(
     warm = solve_fn(carry.x, endpoints[0].expand(N, 3), carry.X, carry.U, carry.state)
     carry = carry._replace(X=warm.X, U=warm.U, state=warm.state)
 
-    outs = []
-    for _ in range(num_steps):
-        carry, out = tick(carry)
-        outs.append(out)
-    xs, us, dists, gidx, iters = (torch.stack(f) for f in zip(*outs))
-    cast = lambda t: t.to(dtype)
+    return tick, carry
+
+
+def run_mpc(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    mpc_cfg: MPCConfig,
+    x0,
+    endpoints,
+    num_steps: int,
+    wrench_world: Optional[torch.Tensor] = None,
+    solve_fn=None,
+):
+    """Closed-loop point-to-goal MPC on x0's device.
+
+    Args:
+      x0: (nx,) initial plant state.
+      endpoints: (G, 3) chain of EE goals, cycled on arrival.
+      num_steps: control ticks.
+      wrench_world: optional true disturbance wrench on the plant.
+      solve_fn: optional ``(xs, goals, X, U, state) -> SQPResult``
+        single-lane solver override; by default the SQP kernel at B = 1,
+        or the readable solver outside its coverage
+        (``solvers.select.default_single_solve_fn``).  On CUDA it is
+        captured in the tick's graph, so it must not read the host.
+
+    Returns (final MPCCarry, MPCTrace stacked over ticks).
+    """
+    tick, carry = make_mpc_tick(model, cost_cfg, sqp_cfg, mpc_cfg, x0, endpoints,
+                                wrench_world, solve_fn)
+    runner = TickRunner(tick, carry, num_steps,
+                        what=f"run_mpc's tick with solve_fn={solve_fn!r}")
+    trace = runner.run(num_steps)
+    carry = runner.carry()
+    cast = lambda t: t.to(x0.dtype)
     final = carry._replace(x=cast(carry.x), X=cast(carry.X), U=cast(carry.U))
-    return final, MPCTrace(
-        x=cast(xs), u=cast(us), goal_dist=cast(dists), goal_idx=gidx, sqp_iters=iters
-    )
+    return final, trace._replace(x=cast(trace.x), u=cast(trace.u),
+                                 goal_dist=cast(trace.goal_dist))

@@ -6,10 +6,11 @@ keeps the lane whose one-step prediction best matches the observed state,
 and the hypotheses are resampled around the winner.  The closed loop ticks
 :func:`make_loop_tick`'s tick: the two-kernel tick of
 ``mpc/fused_tick.py`` where kernel K1 covers the configuration and no
-solver is injected, on the fixed buffers of ``mpc/graphed.py`` (on CUDA
-replayed as captured graphs), else (or with ``fused=False``) the readable
-tick of ``mpc/readable_tick.py`` in a Python loop.  The host-driven tick (:func:`sampled_tick`,
-which ``runtime/controller.py`` calls) follows the same choice.
+solver is injected, else (or with ``fused=False``) the readable tick of
+``mpc/readable_tick.py``; either on the fixed buffers of
+``mpc/graphed.py`` (on CUDA replayed as captured graphs).  The
+host-driven tick (:func:`sampled_tick`, which ``runtime/controller.py``
+calls) follows the same choice.
 
 Random numbers come from an explicit ``torch.Generator`` on the carry's
 device; a tick can instead take its draws (:class:`TickDraws`) from the
@@ -299,11 +300,11 @@ def run_sampled_mpc(
     two-kernel tick by default (on CUDA the SQP and tick kernels, on the
     CPU their plain versions), the readable tick with ``fused=False``, an
     injected ``batch_solve_fn`` or a configuration outside K1's coverage.
-    The two-kernel tick runs on the fixed buffers of
-    ``graphed.LoopTickRunner``: on CUDA its first tick runs eagerly and the
-    rest replay captured CUDA graphs, the counterpart of the TPU package's
-    ``lax.scan``; on the CPU every tick runs eagerly.  The readable tick
-    reads the host inside a tick, so it runs as a Python loop.
+    Either tick runs on the fixed buffers of ``graphed.LoopTickRunner``: on
+    CUDA its first tick runs eagerly and the rest replay captured CUDA
+    graphs, the counterpart of the TPU package's ``lax.scan``; on the CPU
+    every tick runs eagerly.  The two-kernel tick is captured 10 ticks to
+    a graph, the readable tick (tens of thousands of small kernels) one.
 
     Args:
       ref_traj: (T_ref, 3) EE reference positions, T_ref >= num_steps + N.
@@ -331,15 +332,10 @@ def run_sampled_mpc(
     if carry is None:
         carry = init_loop_carry(model, mpc_cfg, sample_cfg, x0, f_true0, generator)
     from .fused_tick import FusedLoopTick
+    from .graphed import TICKS_PER_GRAPH, LoopTickRunner
 
-    if isinstance(tick, FusedLoopTick):
-        from .graphed import LoopTickRunner
-
-        runner = LoopTickRunner(tick, carry, num_steps, with_draws=draws is not None)
-        trace = runner.run(num_steps, draws)
-        return runner.carry(), trace
-    traces = []
-    for t in range(num_steps):
-        carry, trace = tick(carry, None if draws is None else draws[t])
-        traces.append(trace)
-    return carry, SampledTrace(*(torch.stack(f) for f in zip(*traces)))
+    runner = LoopTickRunner(tick, carry, num_steps, with_draws=draws is not None,
+                            ticks_per_graph=TICKS_PER_GRAPH if isinstance(tick, FusedLoopTick)
+                            else 1)
+    trace = runner.run(num_steps, draws)
+    return runner.carry(), trace

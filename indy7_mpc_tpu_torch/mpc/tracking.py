@@ -8,10 +8,13 @@ reference step per control tick, the solver warm-starts from its previous
 solution with the measured state pinned, and the plant can carry an
 unmodeled constant/wandering wrench.
 
-A Python loop over ticks.  On CUDA each tick launches the SQP kernel (K1)
-at B = 1 and the tick-epilogue kernel (K2) at B = 1 as the plant step and
-the trace FK (``sim/kernel_plant.py``); on the CPU both run their plain
-versions in x0's dtype.
+The TPU package scans the tick in one ``lax.scan``; here it runs on the
+fixed buffers of ``mpc/graphed.py``'s ``TickRunner``: on CUDA the first
+tick eagerly and every later one a replay of captured CUDA graphs, each
+tick launching the SQP kernel (K1) at B = 1 and the tick-epilogue kernel
+(K2) at B = 1 as the plant step and the trace FK (``sim/kernel_plant.py``);
+on the CPU every tick runs eagerly, both kernels' plain versions in x0's
+dtype.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from ..models.robot import RobotModel
 from ..ops import lane_rbd as LR
 from ..sim.kernel_plant import kernel_plant_step
 from .fused_tick import reference_window
+from .graphed import TickRunner
 
 
 class TrackingCarry(NamedTuple):
@@ -40,6 +44,61 @@ class TrackingTrace(NamedTuple):
     q: torch.Tensor
     u: torch.Tensor
     sqp_iters: torch.Tensor
+
+
+def make_tracking_tick(
+    model: RobotModel,
+    cost_cfg: CostConfig,
+    sqp_cfg: SQPConfig,
+    mpc_cfg: MPCConfig,
+    x0,
+    ref_traj,
+    wrench_world: Optional[torch.Tensor] = None,
+    solver_wrench: Optional[torch.Tensor] = None,
+):
+    """:func:`run_tracking_mpc`'s tick and its cold carry, on x0's device in
+    the kernels' dtype (float32 on CUDA, x0's on the CPU): ``(tick,
+    carry)`` with ``tick(carry, draws=None) -> (carry, TrackingTrace
+    row)``.  A Python loop over the tick is the eager loop;
+    ``run_tracking_mpc`` ticks it on a ``graphed.TickRunner``."""
+    from ..solvers.select import default_single_solve_fn
+
+    N, dt = mpc_cfg.N, mpc_cfg.dt
+    device = x0.device
+    kdt = torch.float32 if device.type == "cuda" else x0.dtype
+    like = lambda a: None if a is None else torch.as_tensor(a, dtype=kdt, device=device)
+    ref_traj, wrench_world, solver_wrench = map(like, (ref_traj, wrench_world, solver_wrench))
+    sm = LR.static_model(model.to(device=device, dtype=kdt))
+    solve = default_single_solve_fn(model, cost_cfg, sqp_cfg, dt, device)
+    plant_cfg = PlantConfig(substeps=mpc_cfg.sim_substeps)
+
+    X0 = torch.zeros((N, model.nx), dtype=kdt, device=device)
+    X0[0] = x0
+    carry = TrackingCarry(
+        x=x0.to(kdt),
+        X=X0,
+        U=torch.zeros((N - 1, model.nu), dtype=kdt, device=device),
+        ref_offset=torch.zeros((), dtype=torch.int64, device=device),
+    )
+
+    def tick(carry: TrackingCarry, draws=None):
+        goals = reference_window(ref_traj, carry.ref_offset, N)
+        res = solve(carry.x, goals, carry.X, carry.U, wrench_world=solver_wrench)
+        u = res.U[0]
+        x_next, eep = kernel_plant_step(sm, sm, plant_cfg, dt, carry.x, u, wrench_world)
+        trace = TrackingTrace(
+            tracking_error=torch.linalg.norm(eep - goals[0]),
+            ee_pos=eep,
+            ee_ref=goals[0],
+            q=carry.x[:6],
+            u=u,
+            sqp_iters=res.stats.iterations,
+        )
+        X = res.X.clone()
+        X[0] = x_next
+        return TrackingCarry(x=x_next, X=X, U=res.U, ref_offset=carry.ref_offset + 1), trace
+
+    return tick, carry
 
 
 def run_tracking_mpc(
@@ -63,42 +122,10 @@ def run_tracking_mpc(
 
     Returns (final TrackingCarry, TrackingTrace stacked over ticks).
     """
-    from ..solvers.select import default_single_solve_fn
-
-    N, dt = mpc_cfg.N, mpc_cfg.dt
-    dtype, device = x0.dtype, x0.device
-    kdt = torch.float32 if device.type == "cuda" else dtype
-    like = lambda a: None if a is None else torch.as_tensor(a, dtype=kdt, device=device)
-    ref_traj, wrench_world, solver_wrench = map(like, (ref_traj, wrench_world, solver_wrench))
-    sm = LR.static_model(model.to(device=device, dtype=kdt))
-    solve = default_single_solve_fn(model, cost_cfg, sqp_cfg, dt, device)
-    plant_cfg = PlantConfig(substeps=mpc_cfg.sim_substeps)
-
-    X0 = torch.zeros((N, model.nx), dtype=kdt, device=device)
-    X0[0] = x0
-    carry = TrackingCarry(
-        x=x0.to(kdt),
-        X=X0,
-        U=torch.zeros((N - 1, model.nu), dtype=kdt, device=device),
-        ref_offset=torch.zeros((), dtype=torch.int64, device=device),
-    )
-    traces = []
-    for _ in range(num_steps):
-        goals = reference_window(ref_traj, carry.ref_offset, N)
-        res = solve(carry.x, goals, carry.X, carry.U, wrench_world=solver_wrench)
-        u = res.U[0]
-        x_next, eep = kernel_plant_step(sm, sm, plant_cfg, dt, carry.x, u, wrench_world)
-        traces.append(TrackingTrace(
-            tracking_error=torch.linalg.norm(eep - goals[0]),
-            ee_pos=eep,
-            ee_ref=goals[0],
-            q=carry.x[:6],
-            u=u,
-            sqp_iters=res.stats.iterations,
-        ))
-        X = res.X.clone()
-        X[0] = x_next
-        carry = TrackingCarry(x=x_next, X=X, U=res.U, ref_offset=carry.ref_offset + 1)
-    trace = TrackingTrace(*(torch.stack(f) for f in zip(*traces)))
-    cast = lambda t: t.to(dtype) if t.is_floating_point() else t
+    tick, carry = make_tracking_tick(model, cost_cfg, sqp_cfg, mpc_cfg, x0, ref_traj,
+                                     wrench_world, solver_wrench)
+    runner = TickRunner(tick, carry, num_steps, what="run_tracking_mpc's tick")
+    trace = runner.run(num_steps)
+    carry = runner.carry()
+    cast = lambda t: t.to(x0.dtype) if t.is_floating_point() else t
     return (TrackingCarry(*map(cast, carry)), TrackingTrace(*map(cast, trace)))

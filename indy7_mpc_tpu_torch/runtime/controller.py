@@ -17,12 +17,13 @@ Tick semantics mirror ``GATO_Controller.joint_callback``
   * watchdog exit after 10 s without a plant state (:297-303).
 
 The controller's state is float32 on its ``device``, the card unless the
-caller passes ``device="cpu"``; on CUDA each tick launches the SQP kernel
-(K1) once and the tick-epilogue kernel (K2) once, as one replay of the
-tick captured as a CUDA graph at warm-up (:class:`ControllerTickRunner`).
-With an injected ``batch_solve_fn``, or a configuration outside K1's
-coverage, the tick is the readable one (``mpc/readable_tick.py``) on that
-solver or on the readable solver, run eagerly.
+caller passes ``device="cpu"``; on CUDA each tick is one replay of the
+tick captured as a CUDA graph at warm-up (:class:`ControllerTickRunner`),
+which launches the SQP kernel (K1) once and the tick-epilogue kernel (K2)
+once.  With an injected ``batch_solve_fn``, or a configuration outside
+K1's coverage, the tick is the readable one (``mpc/readable_tick.py``) on
+that solver or on the readable solver, captured alike; an injected
+solver that reads the host makes the capture, so the construction, raise.
 """
 from __future__ import annotations
 
@@ -86,19 +87,19 @@ class ControllerTickRunner:
     :meth:`step` loads the input (from a pinned host buffer in one copy,
     or, for an observed state already on the card, that state's device
     copy and the offset's), runs the tick and fetches ``host``.  On CUDA,
-    when the tick is the two-kernel one (the readable tick reads the host
-    inside a tick), :meth:`capture` records one tick as a CUDA graph
+    for the two-kernel tick and the readable one alike, on a one-rank mesh,
+    :meth:`capture` records one tick as a CUDA graph
     (``mpc.graphed.TickGraph``, the controller's generator registered), and
     every later step replays it; a step before the capture runs the body
-    eagerly and then captures.  Elsewhere every step runs the body eagerly.
+    eagerly and then captures.  Elsewhere (the CPU, a mesh of several
+    ranks, whose consensus goes through the host) every step runs the body
+    eagerly.
     The graph reads the buffers' addresses, so the controller writes its
     state into them with ``copy_`` and never rebinds them.
     """
 
     def __init__(self, tick: ControllerTick, f_batch, nx: int, nu: int,
                  generator: Optional[torch.Generator]):
-        from ..mpc.fused_tick import SampledTick
-
         dev = f_batch.device
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
         self.tick, self.generator = tick, generator
@@ -111,8 +112,7 @@ class ControllerTickRunner:
             nx + 1, dtype=torch.float32, pin_memory=True)
         self.host = zeros(nu + 14)
         self.graph = None
-        self.graphable = (dev.type == "cuda" and isinstance(tick.sampled, SampledTick)
-                          and tick.sampled.mesh.size == 1)
+        self.graphable = dev.type == "cuda" and tick.sampled.mesh.size == 1
 
     def buffers(self):
         """Every tensor the tick reads or writes outside its graph's pool."""
@@ -138,7 +138,8 @@ class ControllerTickRunner:
         ``SampledController``'s warm-up)."""
         from ..mpc.graphed import TickGraph
 
-        self.graph = TickGraph(self._body, 1, self.generator)
+        self.graph = TickGraph(self._body, 1, self.generator,
+                               f"the controller tick {type(self.tick.sampled).__name__}")
 
     def step(self, x_obs, offset: int, normals=None) -> np.ndarray:
         """One tick on the observed state ``x_obs`` at reference offset

@@ -12,8 +12,10 @@ kernel K1 (its derivatives come from autodiff, not from K1's ``Dual``
 code) and the solver for every configuration outside K1's coverage.
 
 Control flow is fixed-shape: a Python loop over ``max_iters`` with masked
-per-lane updates; the PCG and ADMM loops read the host at their exit
-checks (ops/while_loop.py).  ``stats.iterations`` counts the
+per-lane updates; run eagerly, the PCG and ADMM loops read the host at
+their exit checks (ops/while_loop.py), and under a CUDA graph capture
+they run every iteration to their cap, masked, so a solve reads nothing
+on the host and can be captured.  ``stats.iterations`` counts the
 iterations a lane ran while not done, rejected ones included, as the TPU
 package's readable solver does (K1 counts accepted steps).
 """
@@ -113,9 +115,9 @@ def solve(
     rho = state.rho.to(dtype)
     X = torch.cat([xs[..., None, :], X[..., 1:, :]], -2)  # pin the initial state
 
-    # Exact powers of two (a CUDA pow of 0.5 can round 0.0625 down by an ulp).
-    alphas = torch.tensor([0.5 ** i for i in range(sqp_cfg.num_alphas)], dtype=dtype,
-                          device=device)
+    # Exact powers of two (a CUDA pow of 0.5 can round 0.0625 down by an ulp),
+    # built on the device: a host-to-device copy of a list would sync.
+    alphas = torch.full((sqp_cfg.num_alphas,), 0.5, dtype=dtype, device=device).cumprod(0) * 2
     # Candidates: the alphas, then alpha = 0 (the base merit).
     cand = torch.cat([alphas, torch.zeros(1, dtype=dtype, device=device)])
     cand = cand.reshape((-1,) + (1,) * X.dim())
@@ -167,7 +169,9 @@ def solve(
         ok = merits[:-1] <= merits[-1]
         any_ok = ok.any(0)
         first = ok.to(torch.int8).argmax(0)  # alphas descend: the first wins
-        alpha = torch.where(any_ok, alphas[first], 0.0)
+        # index_select: indexing by a 0-d tensor (one lane) reads it on the host.
+        alpha = torch.where(any_ok, alphas.index_select(0, first.reshape(-1)).reshape(first.shape),
+                            0.0)
 
         # Masked update: once done (or rejected), the trajectory freezes.
         take = ~done & (alpha > 0.0)

@@ -1035,3 +1035,230 @@ def test_failed_capture_raises(cuda):
     assert (sqp_solve.launches, tick_epilogue.launches) == before
     for f, a, b in zip(carry._fields, runner.carry(), after_first):
         assert torch.equal(a, b), f
+
+
+# ---- The other loops as captured CUDA graphs: run_mpc, run_tracking_mpc,
+# the readable loop and the readable controller tick ----
+
+P2G_N, P2G_ITERS = 32, 3
+
+
+def _single_lane(cuda, loop):
+    """(make_*_tick's tick and carry, the run_* call) of run_mpc at the
+    point-to-goal configuration or run_tracking_mpc on the fig-8, with a
+    true wrench on the plant."""
+    from indy7_mpc_tpu_torch.mpc import run_mpc, run_tracking_mpc
+    from indy7_mpc_tpu_torch.mpc.point_to_goal import make_mpc_tick
+    from indy7_mpc_tpu_torch.mpc.tracking import make_tracking_tick
+
+    model = indy7(torch.float32, cuda)
+    x0 = _f32(np.r_[INIT_Q, np.zeros(6)], cuda)
+    w = _f32(F_TRUE0, cuda) * 0.1
+    if loop == "run_mpc":
+        sm = LR.static_model(model)
+        ee0 = torch.stack(LR.ee_pos(sm, list(x0[:6]))).cpu().numpy()
+        goals = np.stack([ee0 + [0.02, 0.0, -0.02], ee0 + [-0.05, 0.05, -0.05]])
+        args = (model, COST, SQPConfig(max_iters=P2G_ITERS), MPCConfig(N=P2G_N, dt=DT), x0,
+                goals)
+        return make_mpc_tick(*args, wrench_world=w), lambda n: run_mpc(*args, n, wrench_world=w)
+    ref = reference.with_padding(reference.figure8(
+        A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT, cycles=1), 200)[190:]
+    args = (model, COST, SQP, MPCConfig(N=P2G_N, dt=DT), x0, ref)
+    return (make_tracking_tick(*args, wrench_world=w, solver_wrench=w),
+            lambda n: run_tracking_mpc(*args, n, wrench_world=w, solver_wrench=w))
+
+
+@pytest.mark.parametrize("loop", ["run_mpc", "run_tracking_mpc"])
+def test_graphed_single_lane_loop_equals_eager_loop(cuda, loop):
+    """20 steps of ``run_mpc`` / ``run_tracking_mpc`` (the first eager, then
+    a 10-tick graph and nine 1-tick ones) against a Python loop over the
+    same tick: trace and final carry bit for bit; each replayed tick counts
+    one K1 and one K2 (run_mpc's warm-up solve one K1 more)."""
+    ticks = 20
+    (tick, carry), run = _single_lane(cuda, loop)
+    rows = []
+    for _ in range(ticks):
+        carry, row = tick(carry)
+        rows.append(row)
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    final, trace = run(ticks)
+    warm = int(loop == "run_mpc")
+    assert (sqp_solve.launches - before[0], tick_epilogue.launches - before[1]) == (
+        ticks + warm, ticks)
+    for f in trace._fields:
+        assert torch.equal(getattr(trace, f), torch.stack([getattr(r, f) for r in rows])), f
+    flat = lambda c: [v for v in c if isinstance(v, torch.Tensor)] + (
+        [v for v in c.state if v is not None] if hasattr(c, "state") else [])
+    for a, b in zip(flat(final), flat(carry)):
+        assert torch.equal(a, b)
+
+
+def _readable_loop(cuda, backend, lanes=8, horizon=16, seed=3):
+    from indy7_mpc_tpu_torch.mpc import make_loop_tick
+
+    ref = reference.with_padding(reference.figure8(
+        A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT, cycles=1), 200)
+    model = indy7(torch.float32, cuda)
+    cfgs = (COST, SQPConfig(max_iters=2, qp_backend=backend), MPCConfig(N=horizon, dt=DT),
+            SampleConfig(batch_size=lanes))
+    x0 = _f32(np.r_[INIT_Q, np.zeros(6)], cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    tick = make_loop_tick(model, *cfgs, _f32(ref, cuda), plant_cfg=PERTURBED_PLANT,
+                          generator=gen, fused=False)
+    run = lambda n, g: run_sampled_mpc(model, *cfgs, x0, ref, n, F_TRUE0, g,
+                                       plant_cfg=PERTURBED_PLANT, fused=False)
+    return tick, init_loop_carry(model, cfgs[2], cfgs[3], x0, F_TRUE0, gen), gen, run
+
+
+@pytest.mark.parametrize("backend", ["riccati", "pcg"])
+def test_graphed_readable_loop_equals_eager_loop(cuda, backend):
+    """``run_sampled_mpc(fused=False)`` (the readable tick on the runner: the
+    first tick eager, then 1-tick graphs) against 4 eager calls of the same
+    tick module, B=8/N=16 f32 on the perturbed plant: trace, carry and
+    generator state bit for bit; neither kernel launched."""
+    ticks = 4
+    tick, carry, gen, run = _readable_loop(cuda, backend)
+    rows = []
+    for _ in range(ticks):
+        carry, row = tick(carry)
+        rows.append(row)
+    gen_g = torch.Generator(device=cuda).manual_seed(3)
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    final, trace = run(ticks, gen_g)
+    assert (sqp_solve.launches, tick_epilogue.launches) == before
+    for f in trace._fields:
+        assert torch.equal(getattr(trace, f), torch.stack([getattr(r, f) for r in rows])), f
+    for f, a, b in zip(carry._fields, final, carry):
+        assert torch.equal(a, b), f
+    assert torch.equal(gen_g.get_state(), gen.get_state())
+
+
+def _readable_controller(cuda, seed=5):
+    ref = reference.with_padding(reference.figure8(
+        A_x=0.5, A_z=0.55, offset=[0.0, 0.4, 0.45], period=10, dt=DT, cycles=1), 200)
+    return SampledController(
+        indy7(torch.float32), CostConfig(formulation="reference"), SQP, MPCConfig(N=16, dt=DT),
+        SampleConfig(batch_size=8, f_ext_std=20.0, f_ext_resample_std=1.0), ref, seed=seed,
+        f_ext_actual=F_TRUE0[:3], device=cuda)
+
+
+def test_graphed_readable_controller_equals_eager_controller_tick(cuda):
+    """A controller outside K1's coverage (formulation "reference", the
+    readable tick) captures its tick at warm-up: 6 ``on_state`` calls
+    against 6 eager calls of the same ``ControllerTick`` from a controller
+    built alike: every output, the final state and the generator bit for
+    bit, no kernel launched."""
+    ticks = 6
+    rng = np.random.default_rng(8)
+    xs = [np.r_[INIT_Q, np.zeros(6)] + 0.01 * rng.normal(size=12) for _ in range(ticks)]
+    ctl, ref_ctl = _readable_controller(cuda), _readable_controller(cuda)
+    assert ctl.runner.graph is not None
+    before = (sqp_solve.launches, tick_epilogue.launches)
+    got = []
+    for x in xs:
+        u, info = ctl.on_state(x.astype(np.float32), DT)
+        got.append(np.r_[u, info["best_idx"], info["f_est"], info["ee_ref"], info["ee_pos"],
+                         info["tracking_error"]])
+    assert (sqp_solve.launches, tick_epilogue.launches) == before
+    X, U, f = ref_ctl.X_best.clone(), ref_ctl.U_best.clone(), ref_ctl.f_batch.clone()
+    x_last, u_last, offset = None, ref_ctl.u_last.clone(), 0.0
+    for x, g in zip(xs, got):
+        xd = _f32(x.astype(np.float32), cuda)
+        x_last = xd if x_last is None else x_last
+        offset += 1.0
+        out, host = ref_ctl._tick(int(offset), xd, x_last, u_last, X, U, f)
+        np.testing.assert_array_equal(g.astype(np.float32), host.cpu().numpy())
+        X, U, f, x_last, u_last = out.X_best, out.U_best, out.f_batch, xd, out.u
+    for name, want in (("X_best", X), ("U_best", U), ("f_batch", f), ("x_last", x_last),
+                       ("u_last", u_last)):
+        assert torch.equal(getattr(ctl, name), want), name
+    assert torch.equal(ctl.generator.get_state(), ref_ctl.generator.get_state())
+
+
+@pytest.mark.parametrize("path", ["run_mpc", "run_tracking_mpc", "readable_pcg",
+                                  "readable_admm", "readable_controller"])
+def test_captured_ticks_make_no_host_sync(cuda, path):
+    """After the eager tick and the capture, the replayed ticks run under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    synchronizing operation."""
+    from indy7_mpc_tpu_torch.mpc.graphed import TICKS_PER_GRAPH, TickRunner
+
+    if path == "readable_controller":
+        ctl = _readable_controller(cuda)
+        replay = lambda: [ctl.runner.graph.replay() for _ in range(3)]
+    else:
+        if path.startswith("readable"):
+            tick, carry, gen, _ = _readable_loop(cuda, path.split("_")[1], lanes=4, horizon=8)
+            runner = TickRunner(tick, carry, 4, generator=gen, ticks_per_graph=1)
+        else:
+            (tick, carry), _ = _single_lane(cuda, path)
+            runner = TickRunner(tick, carry, TICKS_PER_GRAPH + 1)
+        runner.run(2)
+        replay = lambda: runner.run(runner.rows)
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_run_mpc_with_a_host_reading_solver_raises_at_capture(cuda):
+    """An injected solve_fn that reads the host: the first step runs
+    eagerly, the capture at the second raises naming the solver, as
+    ``lax.scan`` refuses an untraceable solver."""
+    from indy7_mpc_tpu_torch.mpc import run_mpc
+
+    model = indy7(torch.float32, cuda)
+    inner = single_solve_fn(model, COST, SQPConfig(max_iters=P2G_ITERS), DT)
+
+    def host_reading_solver(*a):
+        res = inner(*a)
+        float(res.X.sum())  # a device -> host read
+        return res
+
+    x0 = _f32(np.r_[INIT_Q, np.zeros(6)], cuda)
+    with pytest.raises(RuntimeError, match="host_reading_solver"):
+        run_mpc(model, COST, SQPConfig(max_iters=P2G_ITERS), MPCConfig(N=P2G_N, dt=DT), x0,
+                np.zeros((1, 3)), 3, solve_fn=host_reading_solver)
+
+
+@pytest.mark.parametrize("cost, sqp", [
+    (CostConfig(formulation="reference"), SQPConfig(max_iters=2)),
+    (COST, SQPConfig(max_iters=1, qp_backend="admm")),
+], ids=["reference", "admm"])
+def test_run_mpc_outside_kernel_coverage_is_captured(cuda, cost, sqp):
+    """``run_mpc`` on the readable single-lane solver (outside K1's
+    coverage; ADMM's iterate carried in ``SolverState``): 12 steps, the
+    first eager, then graphs, against a Python loop over the same tick:
+    trace and final carry bit for bit; its replays make no host sync."""
+    from indy7_mpc_tpu_torch.mpc import run_mpc
+    from indy7_mpc_tpu_torch.mpc.graphed import TickRunner
+    from indy7_mpc_tpu_torch.mpc.point_to_goal import make_mpc_tick
+
+    ticks, model = 12, indy7(torch.float32, cuda)
+    x0 = _f32(np.r_[INIT_Q, np.zeros(6)], cuda)
+    ee0 = torch.stack(LR.ee_pos(LR.static_model(model), list(x0[:6]))).cpu().numpy()
+    args = (model, cost, sqp, MPCConfig(N=N, dt=DT), x0,
+            np.stack([ee0 + [0.02, 0.0, -0.02], ee0 + [-0.05, 0.05, -0.05]]))
+    tick, carry = make_mpc_tick(*args)
+    rows = []
+    for _ in range(ticks):
+        carry, row = tick(carry)
+        rows.append(row)
+    final, trace = run_mpc(*args, ticks)
+    for f in trace._fields:
+        assert torch.equal(getattr(trace, f), torch.stack([getattr(r, f) for r in rows])), f
+    leaves = lambda c: [v for v in (*c[:-1], *c.state) if v is not None]
+    for a, b in zip(leaves(final), leaves(carry)):
+        assert torch.equal(a, b)
+    runner = TickRunner(*make_mpc_tick(*args), ticks)
+    runner.run(2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.run(ticks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

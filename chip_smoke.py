@@ -7,7 +7,8 @@ Phases, each fatal on failure (exit code 1, no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from indy7_mpc_tpu_torch/csrc with nvcc;
   3. SQP kernel (K1, one block of threads per lane, the lane's horizon in
-     shared memory) against its plain PyTorch version on the card: B=64,
+     shared memory; past 174 knots a cluster of blocks per lane) against
+     its plain PyTorch version on the card: B=64,
      N=64, 2 SQP iterations, f32 with TF32 off; the line-search alphas
      must be equal on every lane and X, U within 6e-3 after scaling each
      lane by max(1, max |value|); then K1 timed whole and at its
@@ -208,7 +209,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      --mesh sweep's final X and U within the same gate of the
      one-process sweep's (bit equality printed).
      Printed: the card, both benches' lines, and the chain by CUDA events
-     beside the host clock.
+     beside the host clock;
+ 16. (run after phase 5) K1 past one block's shared memory: at B=64, N=256
+     and 512 (clusters of 2 and 3 blocks a lane) against its plain version
+     at phase 3's gates, each with its blocks a lane, a block's shared
+     bytes and the share of its bound printed, and the ptxas line of the
+     cluster kernel; then run_sampled_mpc at B=64, N=256 on the perturbed
+     plant, graphed, for 200 ticks under phase 5's gates (finite trace,
+     last-100 tracking under 0.2 m, K1 and K2 once a tick), its first 20
+     trace rows against the eager loop bit for bit, and the graphed tick
+     against the eager one in turns (measure.loop_modes, 100-tick runs):
+     us a tick by CUDA events and its share of the 10 ms period.
 
 Each kernel's bound is the larger of its floating-point operations on
 the phase's inputs over 67 TFLOP/s and the bytes of its inputs and
@@ -230,10 +241,13 @@ and ``run_tracking_mpc``, its 20, phase 11
 as ``qp_backends``, with 0 launches of each, phase 12 as ``sharded``,
 the launches of (a) and (b) summed over the ranks, and phase 13 as
 ``recorded_runs``, both rows' launches summed, phase 14 as ``tools``,
-the launches of this process: the ranks' are their own, and phase 15 as
-``bench``, bench.main()'s, and ``scale_bench``, the one-process sweep's);
+the launches of this process: the ranks' are their own, phase 15 as
+``bench``, bench.main()'s, and ``scale_bench``, the one-process sweep's,
+and phase 16 as ``long_horizon``, its 200 ticks; K1's entry carries
+phase 16's K1 rows as ``long_horizon``);
 before those the eager and graphed timings of phases 5, 6 and 8
-(``graphs:``; phases 9 and 11's are in ``readable:`` and ``qp_backends:``);
+(``graphs:``; phases 9 and 11's are in ``readable:`` and ``qp_backends:``,
+phase 16's in ``long_horizon:``);
 the last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -292,6 +306,9 @@ STAGE_SLACK, STAGE_GATE = 0.05, 0.25
 # Phase 15: the sweep's horizon, and the lanes of its largest batch held
 # against K1's plain version.
 BENCH_SWEEP_N, BENCH_SWEEP_LANES = 32, 256
+# Phase 16: K1's horizons past one block, and the long-horizon loop's
+# horizon and ticks.
+LONG_K1_N, LONG_N, LONG_TICKS, PERIOD_US = (256, 512), 256, 200, 10_000.0
 
 
 class SmokeFailure(Exception):
@@ -567,6 +584,89 @@ def phase_main_path(dev):
               f"a tick over {GRAPH_CHUNK} ticks, want (0, 2]")
     print(f"device loop, eager against graphed: {card_line()}", flush=True)
     return launches, timing
+
+
+def phase_long_horizon(dev):
+    import numpy as np
+    import torch
+
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.config import (
+        PERTURBED_PLANT, CostConfig, MPCConfig, SampleConfig, SQPConfig,
+    )
+    from indy7_mpc_tpu_torch.models import indy7
+    from indy7_mpc_tpu_torch.mpc import init_loop_carry, make_loop_tick, run_sampled_mpc
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels import _build
+    from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
+    from indy7_mpc_tpu_torch.roofline import bound_ms, k1_work
+    from indy7_mpc_tpu_torch.solvers.sqp_lane import solve_lane_major
+
+    cost, sqp = CostConfig(), SQPConfig(max_iters=SQP_ITERS)
+    sm = LR.static_model(indy7(torch.float32, dev))
+    ptxas = measure.ptxas_lines(_build.build_log(), "sqp_kernelILb1")
+    check(bool(ptxas), "no ptxas line for the cluster kernel sqp_kernel<true>")
+    print("K1 cluster kernel ptxas: " + " | ".join(ptxas), flush=True)
+    rows = []
+    for horizon in LONG_K1_N:
+        cluster, smem = K1.check_horizon(horizon, sqp.num_alphas)
+        check(cluster > 1, f"N={horizon} should take a cluster, got {cluster} block")
+        args, w = measure.k1_inputs(dev, B, horizon)
+        kw = dict(wrench=w)
+        err = check_k1_call(f"K1 N={horizon}", K1.sqp_solve(sm, cost, sqp, DT, *args, **kw),
+                            solve_lane_major(sm, cost, sqp, DT, *args, **kw))
+        ms = cuda_ms(lambda: K1.sqp_solve(sm, cost, sqp, DT, *args, **kw), 20)
+        plain_ms = cuda_ms(lambda: solve_lane_major(sm, cost, sqp, DT, *args, **kw), 1)
+        flops, nbytes = k1_work(B, horizon, cost, sqp, use_wrench=True)
+        bound, bound_by = bound_ms(flops, nbytes)
+        rows.append({"N": horizon, "B": B, "cluster": cluster, "smem_bytes": smem, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                     "share_of_bound": bound / ms, "max_abs_err": err})
+        print(f"K1 sqp_solve B={B} N={horizon}: {cluster} blocks a lane of {smem} bytes of shared "
+              f"memory; kernel {ms * 1e3:.1f} us/solve, plain {plain_ms * 1e3:.1f} us/solve, max "
+              f"|X,U err| {err:.3e}, alphas equal on all {B} lanes; bound {bound * 1e3:.2f} us "
+              f"({bound_by}), {100 * bound / ms:.3f}% of it", flush=True)
+
+    ref, x0 = fig8_reference(), initial_state(dev)
+    model = indy7(torch.float32, dev)
+    cfgs = (cost, sqp, MPCConfig(N=LONG_N, dt=DT),
+            SampleConfig(batch_size=B, f_ext_std=20.0, f_ext_resample_std=1.0))
+    run = lambda ticks, gen: run_sampled_mpc(model, *cfgs, x0, ref, ticks, F_TRUE0, gen,
+                                             plant_cfg=PERTURBED_PLANT)
+    reset_counts()
+    torch.cuda.synchronize()
+    _, trace = run(LONG_TICKS, torch.Generator(device=dev).manual_seed(42))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for name, n in launches.items():
+        check(n == LONG_TICKS, f"N={LONG_N}: {name} launched {n} times in {LONG_TICKS} ticks")
+    for name, v in trace._asdict().items():
+        check(v.shape[0] == LONG_TICKS, f"N={LONG_N}: trace {name} has {v.shape[0]} rows")
+        if v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"N={LONG_N}: trace {name} not finite")
+    te = trace.tracking_error.cpu().numpy().astype(np.float64)
+    tail = te[-100:].mean()
+    check(tail < 0.2, f"N={LONG_N}: last-100 tracking error {tail:.4f} m >= 0.2 m")
+    gen = torch.Generator(device=dev).manual_seed(42)
+    tick = make_loop_tick(model, *cfgs, torch.as_tensor(ref, dtype=torch.float32, device=dev),
+                          plant_cfg=PERTURBED_PLANT, generator=gen)
+    carry, rows_e = init_loop_carry(model, cfgs[2], cfgs[3], x0, F_TRUE0, gen), []
+    for _ in range(GRAPH_TICKS):
+        carry, row = tick(carry)
+        rows_e.append(row)
+    for name, v in trace._asdict().items():
+        want = torch.stack([getattr(r, name) for r in rows_e])
+        check(torch.equal(v[:GRAPH_TICKS], want),
+              f"N={LONG_N}: graphed trace {name} differs from the eager loop's")
+    modes = measure.loop_modes(dev, B, GRAPH_CHUNK, N=LONG_N)
+    us = modes["graphed"]["us_per_tick"]
+    print(f"run_sampled_mpc B={B} N={LONG_N} perturbed plant, {LONG_TICKS} ticks graphed: "
+          f"tracking error mean {te.mean():.4f} m, last-100 mean {tail:.4f} m; K1 and K2 "
+          f"once a tick; the first {GRAPH_TICKS} rows equal the eager loop's bit for bit; "
+          f"graphed {us:.1f} us a tick ({100 * us / PERIOD_US:.1f}% of the 10 ms period), eager "
+          f"{modes['eager']['us_per_tick']:.1f}; {card_line()}", flush=True)
+    return launches, {"k1": rows, "ptxas": ptxas, "loop": modes,
+                      "tracking_last100_m": float(tail)}
 
 
 def reset_counts():
@@ -2209,8 +2309,9 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip(), flush=True)
     print(f"K1: one block of {K1.THREADS} threads per lane, {K1.shared_bytes(N)} bytes of "
-          f"dynamic shared memory at N={N} ({K1.shared_bytes(P2G_N)} at N={P2G_N}; "
-          f"N <= {K1.MAX_N})", flush=True)
+          f"dynamic shared memory at N={N} ({K1.shared_bytes(P2G_N)} at N={P2G_N}); past "
+          f"N={K1.MAX_SEGMENT} a cluster of blocks per lane (N <= {K1.MAX_N}, the card holding "
+          f"clusters of {K1.max_cluster(dev)})", flush=True)
 
     seconds = {}
 
@@ -2225,6 +2326,8 @@ def main():
     phases, graphs = {}, {}
     phases["run_sampled_mpc"], graphs["device_loop"] = timed("run_sampled_mpc",
                                                              phase_main_path, dev)
+    phases["long_horizon"], long_horizon = timed("long_horizon", phase_long_horizon, dev)
+    kernels[0]["long_horizon"] = long_horizon["k1"]
     phases["runtime_in_process"], graphs["controller"] = timed(
         "runtime_in_process", phase_runtime_inprocess, dev)
     phases["runtime_udp"] = timed("runtime_udp", phase_runtime_udp, dev)
@@ -2240,6 +2343,7 @@ def main():
     phases["bench"], phases["scale_bench"], benches = timed("bench", phase_bench, dev)
     print("phase seconds: " + json.dumps(seconds), flush=True)
     print("graphs: " + json.dumps(graphs), flush=True)
+    print("long_horizon: " + json.dumps(long_horizon), flush=True)
     print("bench: " + json.dumps(benches), flush=True)
     print("tools: " + json.dumps(tools), flush=True)
     print("recorded_runs: " + json.dumps(recorded), flush=True)

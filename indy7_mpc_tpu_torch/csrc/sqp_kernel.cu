@@ -1,4 +1,5 @@
-// Kernel K1: the whole batched SQP solve, one thread block per lane (sm_90a).
+// Kernel K1: the whole batched SQP solve, one thread block per lane, or one
+// thread-block cluster per lane past 174 knots (sm_90a).
 //
 // Replaces the Pallas TPU kernel indy7_mpc_tpu/ops/pallas/sqp_kernel.py
 // (_sqp_kernel, launched by sqp_solve_pallas).  Per lane and per SQP
@@ -36,11 +37,32 @@
 // products are 12x12 and the recursion needs full f32.  The Dual RNEA of
 // stage 1b takes the 255 registers a thread may have, so 256 threads fill
 // an SM's register file: one block per SM, 64 of 132 SMs at B=64.
+//
+// Past 174 knots one block's 227 KB cannot hold the horizon, which the TPU
+// kernel keeps whole in VMEM.  The lane then takes a cluster of C blocks
+// (C the smallest that fits, at most the portable 8), on C SMs of one GPC:
+// block r holds the contiguous segment of knots [r*seg, (r+1)*seg), seg =
+// ceil(N/C), in the same layout, with its own copy of the fixed region,
+// and reaches the other blocks' knots through distributed shared memory
+// (cooperative_groups' map_shared_rank).  Stages 1 and 4 run in every
+// block on its own knots at once; they read the knot after the segment
+// (X, dX) over DSMEM.  The Riccati sweep and the rollout stay serial: the
+// block that owns the current segment works while the others wait, and the
+// next block reads S and s (stage 2), or the dx after the segment (stage 3,
+// left in the finished block's Sc), over DSMEM, a cluster barrier at each
+// segment boundary: every DSMEM access is a load.  Every sum over knots is still
+// taken by one thread in knot order, reading the other blocks' terms over
+// DSMEM (each block takes it and gets the same bits, so each keeps its own
+// lane state), so the result is the same bits for every C.  C = 1 is the
+// kernel without the cluster (sqp_kernel<false>, a plain launch).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 
 #include "rbd.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace indy7 {
 
@@ -53,25 +75,30 @@ struct SolveParams {
   int regularize, max_iters, num_alphas, N, B, use_wrench, stages;
 };
 
-constexpr int kMaxAlphas = 16;
 constexpr int kMaxThreads = 256;
 constexpr int kWarp = 32;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
+constexpr int kMaxCluster = 8;      // the portable cluster size
 
-// Shared floats per knot, region by region (each region holds N knots).
+// Shared floats per knot, region by region (each region holds a block's
+// knots).
 constexpr int kX = 12, kU = 6, kG = 3, kDa = 72, kMinv = 36, kD = 12;
 constexpr int kQv = 12, kSc = 8, kJ = 18, kK = 72, kKff = 6, kDX = 12, kDU = 6;
-// Work: stage 1's a (6), L (36) and invD (6) of the knot, then stage 4's
-// costs and defect norms of the knot's (knot, alpha) pairs.
+// Work, at least kWork floats a knot: stage 1's a (6), L (36) and invD (6)
+// of the knot, then stage 4's costs and defect norms of the knot's (knot,
+// alpha) pairs, in two rows of the alpha slots (at least kAlphaSlots, and
+// num_alphas if more: the layout is sized from num_alphas at launch).
 constexpr int kWork = 48;
+constexpr int kAlphaSlots = 16;
 // Terms of the knot's merit and step norm, by index.
 constexpr int kTerms = 6;
 constexpr int kTErr2 = 0, kTBar = 1, kTV2 = 2, kTU2 = 3, kTCv = 4, kTNrm2 = 5;
+// Floats a knot and of the fixed region at up to kAlphaSlots alphas.
 constexpr int kKnotFloats = 329;
 static_assert(kKnotFloats == kX + kU + kG + kDa + kMinv + kD + kQv + kSc + kJ +
                                  kK + kKff + kDX + kDU + kWork + kTerms,
               "kKnotFloats");
-static_assert(2 * kMaxAlphas <= kWork, "stage 4 pairs fit the work region");
+static_assert(2 * kAlphaSlots <= kWork, "stage 4 pairs fit the work region");
 
 // Per-lane scalars, in the first floats of the fixed region.
 struct LaneState {
@@ -83,25 +110,52 @@ constexpr int kState = 4;
 // SB, Qxx, Qxu, Quu, s, Sc, qx, qu, the per-alpha merits and the wrench.
 constexpr int kFixedFloats = 684;
 static_assert(kFixedFloats ==
-                  kState + 4 + 144 * 3 + 72 * 2 + 36 + 12 * 3 + 6 + kMaxAlphas + 6,
+                  kState + 4 + 144 * 3 + 72 * 2 + 36 + 12 * 3 + 6 + kAlphaSlots + 6,
               "kFixedFloats");
 
-// Dynamic shared memory for horizon N (host side).
-inline long long smem_bytes(int N) {
-  return 4LL * (static_cast<long long>(N) * kKnotFloats + kFixedFloats);
+// The alpha slots, the work floats a knot, and the floats a knot and of
+// the fixed region, for num_alphas alphas.
+struct Layout {
+  int slots, work, knot, fixed;
+};
+__host__ __device__ inline Layout layout(int num_alphas) {
+  Layout l;
+  l.slots = num_alphas > kAlphaSlots ? num_alphas : kAlphaSlots;
+  l.work = 2 * l.slots > kWork ? 2 * l.slots : kWork;
+  l.knot = kKnotFloats + l.work - kWork;
+  l.fixed = kFixedFloats + l.slots - kAlphaSlots;
+  return l;
 }
 
-// The block's shared arrays.  Knot k of a region with `rows` floats per
-// knot starts at region + k * rows.
+// Dynamic shared memory of a block holding `knots` knots (host side).
+inline long long smem_bytes(int knots, int num_alphas) {
+  const Layout l = layout(num_alphas);
+  return 4LL * (static_cast<long long>(knots) * l.knot + l.fixed);
+}
+
+// The block's shared arrays and its part of the horizon: it owns knots
+// [lo, hi) of the lane's N, rank `rank` of the lane's `nblk` blocks, each
+// holding up to `seg` knots.  Knot k of the segment is slot k - lo of
+// each per-knot region (region + (k - lo) * rows).
 struct Smem {
   float *X, *U, *G, *da, *minv, *d, *qv, *sc, *J, *K, *kff, *dX, *dU, *work,
       *terms;
   float *S, *SA, *SB, *Qxx, *Qxu, *Quu, *sv, *Sc, *qx, *qu, *merit, *w;
   LaneState* st;
+  int slots, kw;  // alpha slots; work floats a knot
+  int lo, hi, seg, rank, nblk;
 };
 
-DEV Smem carve(float* base, int N) {
+DEV Smem carve(float* base, int num_alphas, int seg, int lo, int hi, int rank, int nblk) {
+  const Layout l = layout(num_alphas);
   Smem s;
+  s.slots = l.slots;
+  s.kw = l.work;
+  s.lo = lo;
+  s.hi = hi;
+  s.seg = seg;
+  s.rank = rank;
+  s.nblk = nblk;
   float* p = base;
   s.st = reinterpret_cast<LaneState*>(p);
   p += kState + 4;
@@ -115,24 +169,57 @@ DEV Smem carve(float* base, int N) {
   s.Sc = p;   p += 12;
   s.qx = p;   p += 12;
   s.qu = p;   p += 6;
-  s.merit = p; p += kMaxAlphas;
+  s.merit = p; p += l.slots;
   s.w = p;    p += 6;
-  s.X = p;    p += N * kX;
-  s.U = p;    p += N * kU;
-  s.G = p;    p += N * kG;
-  s.da = p;   p += N * kDa;
-  s.minv = p; p += N * kMinv;
-  s.d = p;    p += N * kD;
-  s.qv = p;   p += N * kQv;
-  s.sc = p;   p += N * kSc;
-  s.J = p;    p += N * kJ;
-  s.K = p;    p += N * kK;
-  s.kff = p;  p += N * kKff;
-  s.dX = p;   p += N * kDX;
-  s.dU = p;   p += N * kDU;
-  s.work = p; p += N * kWork;
+  s.X = p;    p += seg * kX;
+  s.U = p;    p += seg * kU;
+  s.G = p;    p += seg * kG;
+  s.da = p;   p += seg * kDa;
+  s.minv = p; p += seg * kMinv;
+  s.d = p;    p += seg * kD;
+  s.qv = p;   p += seg * kQv;
+  s.sc = p;   p += seg * kSc;
+  s.J = p;    p += seg * kJ;
+  s.K = p;    p += seg * kK;
+  s.kff = p;  p += seg * kKff;
+  s.dX = p;   p += seg * kDX;
+  s.dU = p;   p += seg * kDU;
+  s.work = p; p += seg * l.work;
   s.terms = p;
   return s;
+}
+
+// Knot k of `region` (rows floats a knot): this block's slot if it owns k,
+// else the owning block's, over distributed shared memory.
+template <bool Cl>
+DEV float* knot_at(const Smem& s, float* region, int rows, int k) {
+  if constexpr (!Cl) {
+    return region + k * rows;
+  } else {
+    const int q = k / s.seg;
+    float* slot = region + (k - q * s.seg) * rows;  // the same slot here
+    return q == s.rank ? slot : cg::this_cluster().map_shared_rank(slot, q);
+  }
+}
+
+// The first slot of `region` in block q's segment: this block's, or block
+// q's over distributed shared memory.  A sum over the lane's knots walks
+// the segments in order from these.
+template <bool Cl>
+DEV const float* segment(const Smem& s, float* region, int q) {
+  if constexpr (Cl) {
+    if (q != s.rank) return cg::this_cluster().map_shared_rank(region, q);
+  }
+  return region;
+}
+
+// A barrier over the lane's blocks: the cluster's, or the block's.
+template <bool Cl>
+DEV void lane_sync() {
+  if constexpr (Cl)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
 }
 
 // Joint-range barrier at q: value, gradient and GN Hessian diagonal.
@@ -156,9 +243,10 @@ DEV float barrier(const ModelConsts& m, const SolveParams& p, const float* q,
 // and err^2, the barrier value and v^2 into the knot's terms.
 DEV void cost_item(const ModelConsts& m, const SolveParams& p, const Smem& s,
                    int k) {
+  const int kl = k - s.lo;
   float x[NX], goal[3];
-  for (int r = 0; r < NX; ++r) x[r] = s.X[k * kX + r];
-  for (int r = 0; r < 3; ++r) goal[r] = s.G[k * kG + r];
+  for (int r = 0; r < NX; ++r) x[r] = s.X[kl * kX + r];
+  for (int r = 0; r < 3; ++r) goal[r] = s.G[kl * kG + r];
   float pe[3], J[3][NJ];
   ee_pos_jacobian(m, x, pe, J);
   float err[3];
@@ -170,9 +258,9 @@ DEV void cost_item(const ModelConsts& m, const SolveParams& p, const Smem& s,
   float gb[NQ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float hb[NQ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   const float cb = p.q_barrier != 0.f ? barrier(m, p, x, gb, hb) : 0.f;
-  float* qv = s.qv + k * kQv;
-  float* sc = s.sc + k * kSc;
-  float* Jk = s.J + k * kJ;
+  float* qv = s.qv + kl * kQv;
+  float* sc = s.sc + kl * kSc;
+  float* Jk = s.J + kl * kJ;
   float v2 = 0.f;
   for (int i = 0; i < NQ; ++i) {
     const float gp = 2.f * (J[0][i] * err[0] + J[1][i] * err[1] + J[2][i] * err[2]);
@@ -184,7 +272,7 @@ DEV void cost_item(const ModelConsts& m, const SolveParams& p, const Smem& s,
   }
   sc[0] = twodQ;
   sc[1] = twoR;
-  float* t = s.terms + k * kTerms;
+  float* t = s.terms + kl * kTerms;
   t[kTErr2] = err2;
   t[kTBar] = cb;
   t[kTV2] = v2;
@@ -193,15 +281,18 @@ DEV void cost_item(const ModelConsts& m, const SolveParams& p, const Smem& s,
 // Stage 1a, dynamics item of knot k < N-1: forward dynamics (a, L, invD
 // kept in the knot's work for stage 1b), dt M^-1, the Euler defect, u^2
 // and the defect norms.
+template <bool Cl>
 DEV void dynamics_item(const ModelConsts& m, const SolveParams& p,
                        const Smem& s, int k) {
   const float dt = p.dt;
+  const int kl = k - s.lo;
+  const float* xk1 = knot_at<Cl>(s, s.X, kX, k + 1);
   float x[NX], xn[NX], u[NU];
   for (int r = 0; r < NX; ++r) {
-    x[r] = s.X[k * kX + r];
-    xn[r] = s.X[(k + 1) * kX + r];
+    x[r] = s.X[kl * kX + r];
+    xn[r] = xk1[r];
   }
-  for (int r = 0; r < NU; ++r) u[r] = s.U[k * kU + r];
+  for (int r = 0; r < NU; ++r) u[r] = s.U[kl * kU + r];
   const float* q = x;
   const float* v = x + NQ;
   float fl[3], nl[3];
@@ -209,14 +300,14 @@ DEV void dynamics_item(const ModelConsts& m, const SolveParams& p,
   float a[NJ], L[6][6], invD[6];
   forward_dynamics(m, q, v, u, p.use_wrench ? fl : nullptr,
                    p.use_wrench ? nl : nullptr, a, L, invD);
-  float* wk = s.work + k * kWork;
+  float* wk = s.work + kl * s.kw;
   for (int i = 0; i < NJ; ++i) {
     wk[i] = a[i];
     for (int j = 0; j < i; ++j) wk[6 + i * 6 + j] = L[i][j];
     wk[42 + i] = invD[i];
   }
   // dt * M^-1, row i*6+j = dt * Minv[i][j].
-  float* minv = s.minv + k * kMinv;
+  float* minv = s.minv + kl * kMinv;
   for (int j = 0; j < NU; ++j) {
     float e[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, col[6];
     e[j] = 1.f;
@@ -228,13 +319,13 @@ DEV void dynamics_item(const ModelConsts& m, const SolveParams& p,
   for (int i = 0; i < NQ; ++i) {
     const float dq = (q[i] + dt * v[i]) - xn[i];
     const float dv = (v[i] + dt * a[i]) - xn[NQ + i];
-    s.d[k * kD + i] = dq;
-    s.d[k * kD + NQ + i] = dv;
+    s.d[kl * kD + i] = dq;
+    s.d[kl * kD + NQ + i] = dv;
     dq2 += dq * dq;
     dv2 += dv * dv;
     u2 += u[i] * u[i];
   }
-  float* t = s.terms + k * kTerms;
+  float* t = s.terms + kl * kTerms;
   t[kTU2] = u2;
   t[kTCv] = sqrtf(dq2) + sqrtf(dv2);
 }
@@ -243,8 +334,9 @@ DEV void dynamics_item(const ModelConsts& m, const SolveParams& p,
 // a one-tangent Dual pass, then column t of dt * da = -dt M^-1 dtau.
 DEV void tangent_item(const ModelConsts& m, const SolveParams& p,
                       const Smem& s, int k, int t) {
-  const float* x = s.X + k * kX;
-  const float* wk = s.work + k * kWork;
+  const int kl = k - s.lo;
+  const float* x = s.X + kl * kX;
+  const float* wk = s.work + kl * s.kw;
   Dual qd[NQ], vd[NQ], ad[NQ], taud[NQ], fld[3], nld[3];
   for (int i = 0; i < NQ; ++i) {
     qd[i] = Dual(x[i], t == i ? 1.f : 0.f);
@@ -261,7 +353,7 @@ DEV void tangent_item(const ModelConsts& m, const SolveParams& p,
     dtau[i] = taud[i].d;
   }
   ldl6_solve(L, invD, dtau, sol);
-  float* da = s.da + k * kDa;
+  float* da = s.da + kl * kDa;
   for (int i = 0; i < NQ; ++i) da[i * NX + t] = p.dt * -sol[i];
 }
 
@@ -290,25 +382,39 @@ DEV float At_row(const float* dtda, float dt, const float* c, int cs, int i) {
   return o;
 }
 
-// Stage 2: the Riccati backward sweep; stores K and kff per knot.
-DEV void backward_sweep(const SolveParams& p, const Smem& s) {
+// Stage 2 on the block's segment: the Riccati backward sweep over its
+// running knots, from the terminal knot's S and s or from those the next
+// block's segment left; stores K and kff per knot.
+template <bool Cl>
+DEV void sweep_segment(const SolveParams& p, const Smem& s) {
   const int N = p.N, Nm1 = N - 1, tid = threadIdx.x, nt = blockDim.x;
   const float dt = p.dt, rho = s.st->rho;
-  {
-    const float* J = s.J + (N - 1) * kJ;
-    const float* sc = s.sc + (N - 1) * kSc;
-    const float* qv = s.qv + (N - 1) * kQv;
+  if (s.hi == N) {
+    const float* J = s.J + (N - 1 - s.lo) * kJ;
+    const float* sc = s.sc + (N - 1 - s.lo) * kSc;
+    const float* qv = s.qv + (N - 1 - s.lo) * kQv;
     for (int e = tid; e < 144 + NX; e += nt) {
       if (e < 144)
         s.S[e] = q_entry(J, sc, p.QN, e / NX, e % NX);
       else
         s.sv[e - 144] = e - 144 < NQ ? p.QN * qv[e - 144] : qv[e - 144];
     }
+  } else if constexpr (Cl) {
+    cg::cluster_group cl = cg::this_cluster();
+    const float* S1 = cl.map_shared_rank(s.S, s.rank + 1);
+    const float* sv1 = cl.map_shared_rank(s.sv, s.rank + 1);
+    for (int e = tid; e < 144 + NX; e += nt) {
+      if (e < 144)
+        s.S[e] = S1[e];
+      else
+        s.sv[e - 144] = sv1[e - 144];
+    }
   }
   __syncthreads();
-  for (int k = Nm1 - 1; k >= 0; --k) {
-    const float* dtda = s.da + k * kDa;  // row u*12+j = dt * da[u][j]
-    const float* W = s.minv + k * kMinv;  // row u*6+j = dt * Minv[u][j]
+  for (int k = min(s.hi, Nm1) - 1; k >= s.lo; --k) {
+    const int kl = k - s.lo;
+    const float* dtda = s.da + kl * kDa;  // row u*12+j = dt * da[u][j]
+    const float* W = s.minv + kl * kMinv;  // row u*6+j = dt * Minv[u][j]
     const float* S = s.S;
     const bool raw = k == Nm1 - 1;
     // SA = S A (144), SB = S B with B = [0; dt M^-1] (72), Sc = S d + s (12).
@@ -326,7 +432,7 @@ DEV void backward_sweep(const SolveParams& p, const Smem& s) {
         s.SB[e - 144] = c;
       } else {
         const int i = e - 216;
-        const float* d = s.d + k * kD;
+        const float* d = s.d + kl * kD;
         float acc = 0.f;
         for (int j = 0; j < NX; ++j) acc += sym(S, raw, i, j) * d[j];
         s.Sc[i] = acc + s.sv[i];
@@ -336,8 +442,8 @@ DEV void backward_sweep(const SolveParams& p, const Smem& s) {
     // Qxx = A^T SA + Q (144), Qxu = A^T SB (72), Quu = B^T SB + (2R + rho) I
     // (lower triangle, 21), qx = A^T Sc (12), qu = B^T Sc + 2R u (6).
     {
-      const float* J = s.J + k * kJ;
-      const float* sc = s.sc + k * kSc;
+      const float* J = s.J + kl * kJ;
+      const float* sc = s.sc + kl * kSc;
       const float twoR = sc[1];
       for (int e = tid; e < 255; e += nt) {
         if (e < 144) {
@@ -360,7 +466,7 @@ DEV void backward_sweep(const SolveParams& p, const Smem& s) {
           const int t = e - 249;
           float acc = 0.f;
           for (int u = 0; u < NQ; ++u) acc += W[u * NU + t] * s.Sc[NQ + u];
-          s.qu[t] = acc + twoR * s.U[k * kU + t];
+          s.qu[t] = acc + twoR * s.U[kl * kU + t];
         }
       }
     }
@@ -375,17 +481,17 @@ DEV void backward_sweep(const SolveParams& p, const Smem& s) {
       for (int t = 0; t < NU; ++t) rhs[t] = e < NX ? s.Qxu[e * NU + t] : s.qu[t];
       ldl6_solve(L, invD, rhs, sol);
       if (e < NX)
-        for (int t = 0; t < NU; ++t) s.K[k * kK + t * NX + e] = -sol[t];
+        for (int t = 0; t < NU; ++t) s.K[kl * kK + t * NX + e] = -sol[t];
       else
-        for (int t = 0; t < NU; ++t) s.kff[k * kKff + t] = -sol[t];
+        for (int t = 0; t < NU; ++t) s.kff[kl * kKff + t] = -sol[t];
     }
     __syncthreads();
     // S' = Qxx + Qxu K (144), symmetrized where the next knot reads it;
     // s = qx + q + Qxu kff (12).
     {
-      const float* K = s.K + k * kK;
-      const float* kff = s.kff + k * kKff;
-      const float* qv = s.qv + k * kQv;
+      const float* K = s.K + kl * kK;
+      const float* kff = s.kff + kl * kKff;
+      const float* qv = s.qv + kl * kQv;
       for (int e = tid; e < 144 + NX; e += nt) {
         if (e < 144) {
           const int i = e / NX, j = e % NX;
@@ -404,38 +510,73 @@ DEV void backward_sweep(const SolveParams& p, const Smem& s) {
   }
 }
 
-// Stage 3: forward rollout of the delta policy from dx0 = 0.
-DEV void forward_rollout(const SolveParams& p, const Smem& s) {
+// Stage 2: the sweep over the lane's segments, last to first, each block
+// in its turn (a cluster barrier after each).
+template <bool Cl>
+DEV void backward_sweep(const SolveParams& p, const Smem& s) {
+  for (int r = s.nblk - 1; r >= 0; --r) {
+    if (r == s.rank) sweep_segment<Cl>(p, s);
+    if constexpr (Cl) cg::this_cluster().sync();
+  }
+}
+
+// Stage 3 on the block's segment: the forward rollout of the delta policy
+// from dx0 = 0, or from the dx after the previous block's segment, which
+// that block left in its Sc (free after stage 2); this block leaves the
+// dx after its own segment in its Sc.
+template <bool Cl>
+DEV void rollout_segment(const SolveParams& p, const Smem& s) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const float dt = p.dt;
-  for (int i = tid; i < NX; i += nt) s.dX[i] = 0.f;
-  __syncthreads();
-  for (int k = 0; k < p.N - 1; ++k) {
-    const float* dx = s.dX + k * kDX;
+  if (s.lo == 0) {
+    for (int i = tid; i < NX; i += nt) s.dX[i] = 0.f;
+    __syncthreads();
+  } else if constexpr (Cl) {
+    const float* prev = cg::this_cluster().map_shared_rank(s.Sc, s.rank - 1);
+    for (int i = tid; i < NX; i += nt) s.dX[i] = prev[i];
+    __syncthreads();
+  }
+  for (int k = s.lo; k < min(s.hi, p.N - 1); ++k) {
+    const int kl = k - s.lo;
+    const float* dx = s.dX + kl * kDX;
+    float* dx_next = s.dX + (kl + 1) * kDX;
+    if constexpr (Cl) {
+      if (k + 1 == s.hi) dx_next = s.Sc;
+    }
     for (int i = tid; i < NX; i += nt) {
       // du = K dx + kff, the same bits in each of the 12 threads.
       float du[NU];
       for (int t = 0; t < NU; ++t) {
-        const float* K = s.K + k * kK + t * NX;
+        const float* K = s.K + kl * kK + t * NX;
         float acc = 0.f;
         for (int j = 0; j < NX; ++j) acc += K[j] * dx[j];
-        du[t] = acc + s.kff[k * kKff + t];
+        du[t] = acc + s.kff[kl * kKff + t];
       }
-      if (i < NU) s.dU[k * kDU + i] = du[i];
+      if (i < NU) s.dU[kl * kDU + i] = du[i];
       float dxn;
       if (i < NQ) {
         dxn = dx[i] + dt * dx[NQ + i];
       } else {
-        const float* da = s.da + k * kDa + (i - NQ) * NX;
-        const float* W = s.minv + k * kMinv + (i - NQ) * NU;
+        const float* da = s.da + kl * kDa + (i - NQ) * NX;
+        const float* W = s.minv + kl * kMinv + (i - NQ) * NU;
         float acc = dx[i];
         for (int j = 0; j < NX; ++j) acc += da[j] * dx[j];
         for (int j = 0; j < NU; ++j) acc += W[j] * du[j];
         dxn = acc;
       }
-      s.dX[(k + 1) * kDX + i] = dxn + s.d[k * kD + i];
+      dx_next[i] = dxn + s.d[kl * kD + i];
     }
     __syncthreads();
+  }
+}
+
+// Stage 3: the rollout over the lane's segments, first to last, each block
+// in its turn (a cluster barrier after each).
+template <bool Cl>
+DEV void forward_rollout(const SolveParams& p, const Smem& s) {
+  for (int r = 0; r < s.nblk; ++r) {
+    if (r == s.rank) rollout_segment<Cl>(p, s);
+    if constexpr (Cl) cg::this_cluster().sync();
   }
 }
 
@@ -457,22 +598,24 @@ DEV float merit_knot_cost(const ModelConsts& m, const SolveParams& p,
 
 // Stage 4, item (knot k, alpha c): the candidate's merit cost and, for a
 // running knot, its Euler defect norms under the lane wrench.
+template <bool Cl>
 DEV void line_search_item(const ModelConsts& m, const SolveParams& p,
                           const Smem& s, int k, int c) {
-  const int Nm1 = p.N - 1;
+  const int Nm1 = p.N - 1, kl = k - s.lo;
   const float alpha = ldexpf(1.f, -c);
-  const float* goal = s.G + k * kG;
+  const float* goal = s.G + kl * kG;
   float xc[NX], cost, cv = 0.f;
-  for (int r = 0; r < NX; ++r) xc[r] = s.X[k * kX + r] + alpha * s.dX[k * kDX + r];
+  for (int r = 0; r < NX; ++r) xc[r] = s.X[kl * kX + r] + alpha * s.dX[kl * kDX + r];
   if (k == Nm1) {
     cost = merit_knot_cost(m, p, xc, goal, p.QN);
   } else {
     const float dt = p.dt;
+    const float* xk1 = knot_at<Cl>(s, s.X, kX, k + 1);
+    const float* dxk1 = knot_at<Cl>(s, s.dX, kDX, k + 1);
     float xnc[NX], uc[NU], u2 = 0.f;
-    for (int r = 0; r < NX; ++r)
-      xnc[r] = s.X[(k + 1) * kX + r] + alpha * s.dX[(k + 1) * kDX + r];
+    for (int r = 0; r < NX; ++r) xnc[r] = xk1[r] + alpha * dxk1[r];
     for (int r = 0; r < NU; ++r) {
-      uc[r] = s.U[k * kU + r] + alpha * s.dU[k * kDU + r];
+      uc[r] = s.U[kl * kU + r] + alpha * s.dU[kl * kDU + r];
       u2 += uc[r] * uc[r];
     }
     cost = merit_knot_cost(m, p, xc, goal, 1.f) + p.R * u2;
@@ -489,24 +632,41 @@ DEV void line_search_item(const ModelConsts& m, const SolveParams& p,
     }
     cv = sqrtf(dq2) + sqrtf(dv2);
   }
-  s.work[k * kWork + c] = cost;
-  s.work[k * kWork + kMaxAlphas + c] = cv;
+  s.work[kl * s.kw + c] = cost;
+  s.work[kl * s.kw + s.slots + c] = cv;
 }
 
 // The alpha = 0 merit from stage 1's terms, summed in knot order.
+template <bool Cl>
 DEV float base_merit(const SolveParams& p, const Smem& s) {
-  const int Nm1 = p.N - 1;
-  float cost = 0.f, cv = 0.f;
-  for (int k = 0; k < Nm1; ++k) {
-    const float* t = s.terms + k * kTerms;
-    cost += ((t[kTErr2] + p.dQ * t[kTV2]) + p.R * t[kTU2]) + t[kTBar];
-    cv += t[kTCv];
+  const int N = p.N, Nm1 = N - 1;
+  float cost = 0.f, cv = 0.f, bc_T = 0.f;
+  for (int k0 = 0; k0 < N; k0 += s.seg) {
+    const float* t = segment<Cl>(s, s.terms, k0 / s.seg);
+    for (int k = k0; k < min(k0 + s.seg, N); ++k, t += kTerms) {
+      if (k < Nm1) {
+        cost += ((t[kTErr2] + p.dQ * t[kTV2]) + p.R * t[kTU2]) + t[kTBar];
+        cv += t[kTCv];
+      } else {
+        bc_T = p.QN * t[kTErr2] + p.dQ * t[kTV2] + p.QN * t[kTBar];
+      }
+    }
   }
-  const float* t = s.terms + Nm1 * kTerms;
-  const float bc_T = p.QN * t[kTErr2] + p.dQ * t[kTV2] + p.QN * t[kTBar];
   return (cost + bc_T) + p.merit_mu * cv;
 }
 
+// The masked update of the cluster kernel's segment: X += scale dX over
+// its nx floats, U += scale dU over its nu.  Kept out of line: inlined
+// into sqp_kernel<true>, ptxas at -O1 and above (CUDA 12.9, sm_90a)
+// emitted these two loops so that they wrote past the segment's U, into
+// its goals (found on the H100 by dumping the shared arrays after every
+// stage; right at -O0, out of line, or with the bounds made opaque).
+__device__ __noinline__ void update_segment(const Smem& s, float scale, int nx, int nu) {
+  for (int e = threadIdx.x; e < nx; e += blockDim.x) s.X[e] += scale * s.dX[e];
+  for (int e = threadIdx.x; e < nu; e += blockDim.x) s.U[e] += scale * s.dU[e];
+}
+
+template <bool Cl>
 __global__ void __launch_bounds__(kMaxThreads)
 sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
            const float* __restrict__ goals, const float* __restrict__ X,
@@ -515,76 +675,96 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
            float* __restrict__ Uo, float* __restrict__ rho_out,
            float* __restrict__ alpha_log, float* __restrict__ step_log) {
   extern __shared__ float smem[];
-  const int lane = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const int B = p.B, N = p.N, Nm1 = N - 1, NA = p.num_alphas;
   const long long nB = B;
-  const Smem s = carve(smem, N);
+  // The lane's blocks: a cluster of nblk, this one its rank-th, owning the
+  // knots [lo, hi) (the running knots [lo, hr)); or the block alone.
+  int lane = blockIdx.x, rank = 0, nblk = 1;
+  if constexpr (Cl) {
+    cg::cluster_group cl = cg::this_cluster();
+    rank = static_cast<int>(cl.block_rank());
+    nblk = static_cast<int>(cl.num_blocks());
+    lane = blockIdx.x / nblk;
+  }
+  const int seg = Cl ? (N + nblk - 1) / nblk : N;
+  const int lo = rank * seg, hi = min(lo + seg, N), hr = min(hi, Nm1);
+  const Smem s = carve(smem, NA, seg, lo, hi, rank, nblk);
+  const bool logs = tid == 0 && rank == 0;  // the thread that writes the lane's outputs
 
-  // Gather the lane's trajectory, goals and wrench (stride B in global).
-  for (int e = tid; e < N * kX; e += nt)
-    s.X[e] = e < kX ? xs[e * nB + lane] : X[e * nB + lane];
-  for (int e = tid; e < Nm1 * kU; e += nt) s.U[e] = U[e * nB + lane];
-  for (int e = tid; e < N * kG; e += nt) s.G[e] = goals[e * nB + lane];
+  // Gather the segment's trajectory and goals, the lane's wrench (stride B
+  // in global).
+  for (int e = tid; e < (hi - lo) * kX; e += nt) {
+    const long long g = lo * kX + e;
+    s.X[e] = g < kX ? xs[g * nB + lane] : X[g * nB + lane];
+  }
+  for (int e = tid; e < (hr - lo) * kU; e += nt) s.U[e] = U[(lo * kU + e) * nB + lane];
+  for (int e = tid; e < (hi - lo) * kG; e += nt) s.G[e] = goals[(lo * kG + e) * nB + lane];
   if (p.use_wrench)
     for (int e = tid; e < 6; e += nt) s.w[e] = w[e * nB + lane];
   if (tid == 0) {
     s.st->rho = rho_in[lane];
     s.st->done = 0;
   }
-  __syncthreads();
+  lane_sync<Cl>();
 
   for (int it = 0; it < p.max_iters; ++it) {
-    // ---- Stage 1a: dynamics of knots 0..N-2, cost data of knots 0..N-1 ----
-    for (int e = tid; e < Nm1 + N; e += nt) {
-      if (e < Nm1)
-        dynamics_item(m, p, s, e);
+    // ---- Stage 1a: dynamics of knots lo..hr-1, cost data of knots
+    // lo..hi-1 ----
+    for (int e = tid; e < (hr - lo) + (hi - lo); e += nt) {
+      if (e < hr - lo)
+        dynamics_item<Cl>(m, p, s, lo + e);
       else
-        cost_item(m, p, s, e - Nm1);
+        cost_item(m, p, s, lo + e - (hr - lo));
     }
-    __syncthreads();
+    lane_sync<Cl>();
     // ---- Stage 1b: the (knot, tangent) pairs; the last thread first sums
     // the alpha = 0 merit ----
-    if (tid == nt - 1) s.st->base_merit = base_merit(p, s);
-    for (int e = tid; e < Nm1 * NX; e += nt) tangent_item(m, p, s, e / NX, e % NX);
+    if (tid == nt - 1) s.st->base_merit = base_merit<Cl>(p, s);
+    for (int e = tid; e < (hr - lo) * NX; e += nt) tangent_item(m, p, s, lo + e / NX, e % NX);
     __syncthreads();
 
     if (p.stages >= 2) {
       // ---- Stage 2: Riccati sweep; stage 3: rollout (each ends on a
       // barrier) ----
-      backward_sweep(p, s);
-      if (p.stages >= 3) forward_rollout(p, s);
+      backward_sweep<Cl>(p, s);
+      if (p.stages >= 3) forward_rollout<Cl>(p, s);
     }
     if (p.stages < 4) {  // profiling cut: no line search, no update
-      if (tid == 0) {
+      if (logs) {
         alpha_log[it * nB + lane] = 0.f;
         step_log[it * nB + lane] = 0.f;
       }
+      if constexpr (Cl) cg::this_cluster().sync();
       continue;
     }
 
     // ---- Stage 4: the (knot, alpha) pairs, then the per-alpha merits and
     // the per-knot step norms ----
-    for (int e = tid; e < N * NA; e += nt) line_search_item(m, p, s, e / NA, e % NA);
-    __syncthreads();
-    for (int e = tid; e < NA + N; e += nt) {
+    for (int e = tid; e < (hi - lo) * NA; e += nt)
+      line_search_item<Cl>(m, p, s, lo + e / NA, e % NA);
+    lane_sync<Cl>();
+    for (int e = tid; e < NA + (hi - lo); e += nt) {
       if (e < NA) {
         float cost = 0.f, cv = 0.f;
-        for (int k = 0; k < Nm1; ++k) {
-          cost += s.work[k * kWork + e];
-          cv += s.work[k * kWork + kMaxAlphas + e];
+        for (int k0 = 0; k0 < N; k0 += seg) {
+          const float* wk = segment<Cl>(s, s.work, k0 / seg) + e;
+          for (int k = k0; k < min(k0 + seg, N); ++k, wk += s.kw) {
+            cost += wk[0];
+            if (k < Nm1) cv += wk[s.slots];
+          }
         }
-        cost += s.work[Nm1 * kWork + e];
         s.merit[e] = cost + p.merit_mu * cv;
       } else {
-        const int k = e - NA;
+        const int kl = e - NA;  // knot lo + kl
         float n2 = 0.f;
-        for (int r = 0; r < NX; ++r) n2 += s.dX[k * kDX + r] * s.dX[k * kDX + r];
-        if (k < Nm1)
-          for (int r = 0; r < NU; ++r) n2 += s.dU[k * kDU + r] * s.dU[k * kDU + r];
-        s.terms[k * kTerms + kTNrm2] = n2;
+        for (int r = 0; r < NX; ++r) n2 += s.dX[kl * kDX + r] * s.dX[kl * kDX + r];
+        if (lo + kl < Nm1)
+          for (int r = 0; r < NU; ++r) n2 += s.dU[kl * kDU + r] * s.dU[kl * kDU + r];
+        s.terms[kl * kTerms + kTNrm2] = n2;
       }
     }
-    __syncthreads();
+    lane_sync<Cl>();
     if (tid == 0) {
       LaneState& st = *s.st;
       float alpha = 0.f;
@@ -594,10 +774,15 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
       const bool take = !done && alpha > 0.f;
       const float scale = take ? alpha : 0.f;
       float nrm2 = 0.f;
-      for (int k = 0; k < N; ++k) nrm2 += s.terms[k * kTerms + kTNrm2];
+      for (int k0 = 0; k0 < N; k0 += seg) {
+        const float* t = segment<Cl>(s, s.terms, k0 / seg) + kTNrm2;
+        for (int k = k0; k < min(k0 + seg, N); ++k, t += kTerms) nrm2 += *t;
+      }
       const float step = scale * sqrtf(nrm2);
-      alpha_log[it * nB + lane] = done ? 0.f : alpha;
-      step_log[it * nB + lane] = step;
+      if (rank == 0) {
+        alpha_log[it * nB + lane] = done ? 0.f : alpha;
+        step_log[it * nB + lane] = step;
+      }
       const bool rejected = !done && alpha <= 0.f;
       st.rho = fminf(fmaxf(rejected ? st.rho * p.rho_factor : st.rho, p.rho_min),
                      p.rho_max);
@@ -606,21 +791,29 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
     }
     __syncthreads();
     const float scale = s.st->scale;
-    for (int e = tid; e < N * kX; e += nt) s.X[e] += scale * s.dX[e];
-    for (int e = tid; e < Nm1 * kU; e += nt) s.U[e] += scale * s.dU[e];
-    __syncthreads();
+    if constexpr (Cl) {
+      update_segment(s, scale, (hi - lo) * kX, (hr - lo) * kU);
+    } else {
+      for (int e = tid; e < (hi - lo) * kX; e += nt) s.X[e] += scale * s.dX[e];
+      for (int e = tid; e < (hr - lo) * kU; e += nt) s.U[e] += scale * s.dU[e];
+    }
+    lane_sync<Cl>();
   }
 
-  // Scatter the lane's result.
-  for (int e = tid; e < N * kX; e += nt) Xo[e * nB + lane] = s.X[e];
-  for (int e = tid; e < Nm1 * kU; e += nt) Uo[e * nB + lane] = s.U[e];
-  if (tid == 0) rho_out[lane] = s.st->rho;
+  // Scatter the segment's result.
+  for (int e = tid; e < (hi - lo) * kX; e += nt) Xo[(lo * kX + e) * nB + lane] = s.X[e];
+  for (int e = tid; e < (hr - lo) * kU; e += nt) Uo[(lo * kU + e) * nB + lane] = s.U[e];
+  if (logs) rho_out[lane] = s.st->rho;
+  // No block leaves while another may still read its shared memory.
+  if constexpr (Cl) cg::this_cluster().sync();
 }
 
 }  // namespace indy7
 
-// Lets K1 take up to kSmemLimit bytes of dynamic shared memory on the
-// current device: set once per device, not on every launch.
+// Lets K1 (the plain or the cluster kernel) take up to kSmemLimit bytes of
+// dynamic shared memory on the current device: set once per device, not
+// on every launch.
+template <bool Cl>
 static cudaError_t allow_shared_memory() {
   static std::atomic<unsigned long long> done{0};  // one bit per device < 64
   int dev = 0;
@@ -628,27 +821,85 @@ static cudaError_t allow_shared_memory() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
   if (bit != 0 && (done.load() & bit) != 0) return cudaSuccess;
-  err = cudaFuncSetAttribute(indy7::sqp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             indy7::kSmemLimit);
+  err = cudaFuncSetAttribute(indy7::sqp_kernel<Cl>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, indy7::kSmemLimit);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
 
-// Launches K1 on `stream`, one block of `threads` threads per lane (a
-// multiple of 32, at most 256).  Returns a CUDA error code.
+// A launch of the cluster kernel: `blocks` blocks of `threads` threads and
+// `bytes` of dynamic shared memory, in clusters of `cluster` blocks.
+static cudaLaunchConfig_t cluster_config(int blocks, int threads, long long bytes,
+                                         int cluster, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The largest cluster size up to kMaxCluster of which one cluster of K1
+// blocks (kMaxThreads threads and kSmemLimit bytes each) can be resident
+// on the current device, into *out (1 if none can).  Returns a CUDA error
+// code.
+extern "C" int indy7_sqp_max_cluster(int* out) {
+  cudaError_t err = allow_shared_memory<true>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *out = 1;
+  for (int c = indy7::kMaxCluster; c > 1; --c) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(c, indy7::kMaxThreads, indy7::kSmemLimit, c, nullptr, &attr);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, indy7::sqp_kernel<true>, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters > 0) {
+      *out = c;
+      break;
+    }
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// Launches K1 on `stream`: per lane one block of `threads` threads (a
+// multiple of 32, at most 256), or with `cluster` > 1 a cluster of that
+// many blocks, each holding ceil(N / cluster) knots (every block at least
+// one).  Returns a CUDA error code.
 extern "C" int indy7_sqp_solve(indy7::ModelConsts m, indy7::SolveParams p,
                                const float* xs, const float* goals,
                                const float* X, const float* U, const float* w,
                                const float* rho_in, float* Xo, float* Uo,
                                float* rho_out, float* alpha_log,
-                               float* step_log, int threads, void* stream) {
-  const long long bytes = indy7::smem_bytes(p.N);
+                               float* step_log, int threads, int cluster, void* stream) {
+  if (cluster < 1 || cluster > indy7::kMaxCluster || p.N < 2 || p.num_alphas < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int seg = (p.N + cluster - 1) / cluster;
+  const long long bytes = indy7::smem_bytes(seg, p.num_alphas);
   if (threads < indy7::kWarp || threads > indy7::kMaxThreads ||
       threads % indy7::kWarp != 0 || bytes > indy7::kSmemLimit ||
-      p.num_alphas > indy7::kMaxAlphas)
+      (cluster - 1) * seg >= p.N)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_shared_memory();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster == 1) {
+    const cudaError_t err = allow_shared_memory<false>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    indy7::sqp_kernel<false><<<p.B, threads, bytes, st>>>(m, p, xs, goals, X, U, w, rho_in, Xo, Uo, rho_out, alpha_log, step_log);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaError_t err = allow_shared_memory<true>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  indy7::sqp_kernel<<<p.B, threads, bytes, static_cast<cudaStream_t>(stream)>>>(m, p, xs, goals, X, U, w, rho_in, Xo, Uo, rho_out, alpha_log, step_log);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p.B * cluster, threads, bytes, cluster, st, &attr);
+  err = cudaLaunchKernelEx(&cfg, indy7::sqp_kernel<true>, m, p, xs, goals, X, U, w, rho_in,
+                           Xo, Uo, rho_out, alpha_log, step_log);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

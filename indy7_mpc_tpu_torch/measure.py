@@ -3,14 +3,15 @@ a long host-dispatch run.
 
 Usage: python3 -m indy7_mpc_tpu_torch.measure [--out PATH]
            [--runtime [--stats-dir DIR] | --udp | --k2 [--baseline DIR] | --readable | --qp
-            | --loops]
+            | --loops | --horizon]
 
 Without ``--runtime`` it prints, and writes as JSON to ``--out``:
   * the card's name and power limit (nvidia-smi);
   * kernel K1 (``sqp_solve``) alone: CUDA-event ms per launch and
     lane-solves/s over a sweep of lane counts B, horizons N and SQP
     iteration counts, on random inputs like tests/test_pallas_kernel.py,
-    each row with its floating-point operations and bytes
+    each row with its blocks a lane and a block's shared bytes, its
+    floating-point operations and bytes
     (``roofline.k1_work``: the kernel's own arithmetic), the bound they
     give on an H100 (67 TFLOP/s float32, 3.35 TB/s) and the share of that
     bound reached;
@@ -91,6 +92,12 @@ runs of 2 ticks with its graph's capture seconds and pool bytes
 (``readable_loop_modes``), and the readable controller tick
 (formulation "reference") over 5 ticks of each (``controller_timing``).
 
+With ``--horizon`` it instead times K1 past one block's shared memory,
+N = 175, 256 and 512 at B = 1, 64 and 256 and then B=64, N=64 again
+(``K1_HORIZONS``, each row with its blocks a lane and shared bytes), the
+graphed and eager B=64 closed loop at N=256 in runs of 100 ticks
+(``loop_modes``) and the controller tick at N=256 (``controller_timing``).
+
 It checks nothing; ``chip_smoke.py`` is the correctness run.  Exits 1
 without a CUDA device.
 """
@@ -129,9 +136,13 @@ INIT_Q = [1.5799, 0.0631, -1.1807, 1.0927, -0.6255, -0.0190]
 F_TRUE0 = [-60.0, 20.0, -40.0, 0.0, 0.0, 0.0]
 # (B, N, SQP iterations); the first is repeated last to show drift.
 # (1, 32, 3) is the single-lane solve of run_mpc at the point-to-goal
-# configuration.
+# configuration; N=256 and 512 take clusters of 2 and 3 blocks a lane.
 K1_SWEEP = [(64, 64, 2), (64, 64, 1), (64, 32, 2), (256, 64, 2),
-            (1024, 64, 2), (4096, 64, 2), (1, 32, 3), (64, 64, 2)]
+            (1024, 64, 2), (4096, 64, 2), (1, 32, 3), (64, 256, 2), (64, 512, 2),
+            (64, 64, 2)]
+# Past one block's 174 knots (a cluster of 2, 2 and 3 blocks a lane), at
+# one lane, the main path's 64 and 256; then the main path's N=64 again.
+K1_HORIZONS = [(B, N, 2) for N in (175, 256, 512) for B in (1, 64, 256)] + [(64, 64, 2)]
 
 
 # A device sleep that the timed launches queue behind: about 55 ms at the
@@ -225,22 +236,28 @@ def production_inputs(dev, B, N):
             torch.zeros((B, N - 1, 6), device=dev), wrench)
 
 
-def k1_sweep(dev, card, reps=20):
+def k1_sweep(dev, card, reps=20, sweep=K1_SWEEP):
+    """K1 at each (B, N, SQP iterations) of ``sweep``: CUDA-event ms per
+    launch, its blocks a lane and a block's shared bytes, the bound and
+    its share."""
     sm = LR.static_model(indy7(torch.float32, dev))
     cost, rows = CostConfig(), []
     print(f"K1 sweep on {card}; bounds against the H100 SXM's published 67 TFLOP/s "
           "float32 and 3.35 TB/s (at 700 W)", flush=True)
-    for B, N, iters in K1_SWEEP:
+    for B, N, iters in sweep:
         args, w = k1_inputs(dev, B, N)
         sqp = SQPConfig(max_iters=iters)
         ms = _events_ms(lambda: sqp_solve(sm, cost, sqp, DT, *args, wrench=w), reps)
         flops, nbytes = k1_work(B, N, cost, sqp)
         bound, by = bound_ms(flops, nbytes)
+        cluster, smem = K1.check_horizon(N, sqp.num_alphas)
         rows.append({"B": B, "N": N, "iters": iters, "ms": ms,
                      "lane_solves_per_s": B / (ms * 1e-3), "flops": flops, "bytes": nbytes,
-                     "bound_us": bound * 1e3, "bound_by": by, "share_of_bound": bound / ms})
+                     "bound_us": bound * 1e3, "bound_by": by, "share_of_bound": bound / ms,
+                     "cluster": cluster, "smem_bytes": smem})
         print(f"K1 B={B} N={N} iters={iters}: {ms:.4f} ms/launch, "
-              f"{B / (ms * 1e-3):.1f} lane-solves/s; {flops} flop, {nbytes} B, "
+              f"{B / (ms * 1e-3):.1f} lane-solves/s; {cluster} block(s) a lane of {smem} "
+              f"bytes of shared memory; {flops} flop, {nbytes} B, "
               f"bound {bound * 1e3:.3f} us ({by}), {100 * bound / ms:.3f}% of it", flush=True)
     return rows
 
@@ -300,13 +317,13 @@ def eager_loop(tick, carry, ticks):
     return run
 
 
-def loop_modes(dev, B, ticks=100):
-    """The fig-8 closed-loop tick at B lanes, eager (a Python loop over the
-    tick module) and graphed (``mpc.graphed.LoopTickRunner``, as
-    ``run_sampled_mpc`` runs it), in turns (:func:`modes_in_turns`)."""
-    tick, carry = fig8_loop(dev, B)
+def loop_modes(dev, B, ticks=100, N=64):
+    """The fig-8 closed-loop tick at B lanes and horizon N, eager (a Python
+    loop over the tick module) and graphed (``mpc.graphed.LoopTickRunner``,
+    as ``run_sampled_mpc`` runs it), in turns (:func:`modes_in_turns`)."""
+    tick, carry = fig8_loop(dev, B, N)
     runner = LoopTickRunner(tick, carry, ticks)
-    return modes_in_turns(f"closed-loop tick B={B} N=64 perturbed", ticks, {
+    return modes_in_turns(f"closed-loop tick B={B} N={N} perturbed", ticks, {
         "eager": eager_loop(tick, carry, ticks), "graphed": lambda: runner.run(ticks)})
 
 
@@ -649,7 +666,7 @@ def runtime_controller(dev, B=64, N=64, cost_cfg=None):
     )
 
 
-def controller_timing(dev, warm=10, steady=50, cost_cfg=None):
+def controller_timing(dev, warm=10, steady=50, cost_cfg=None, N=64):
     """The controller tick without a plant (the same host state every
     tick), graphed (``SampledController.on_state``: its own host-clock
     ``solve_time_us``) and eager (the controller's ``ControllerTick`` called
@@ -657,9 +674,9 @@ def controller_timing(dev, warm=10, steady=50, cost_cfg=None):
     ``on_state`` ran before its graph), in turns, one tick of each after
     the other; p50/p95 over ``steady`` ticks of each after ``warm``, and
     one tick of each under the profiler (host-side launches, device
-    kernels and copies, device µs).  ``cost_cfg``: the controller's cost
-    (:func:`runtime_controller`)."""
-    ctl = runtime_controller(dev, cost_cfg=cost_cfg)
+    kernels and copies, device µs).  ``cost_cfg``: the controller's cost,
+    ``N`` its horizon (:func:`runtime_controller`)."""
+    ctl = runtime_controller(dev, N=N, cost_cfg=cost_cfg)
     x = np.zeros(12, np.float32)
     x[:6] = INIT_Q
 
@@ -690,7 +707,7 @@ def controller_timing(dev, warm=10, steady=50, cost_cfg=None):
                      "solve_time_us_p95": float(np.percentile(us, 95)),
                      "host_launches": host, "device_launches": kernels,
                      "device_us": device_ms * 1e3}
-    print(f"controller tick ({type(ctl._tick.sampled).__name__}) B=64 N=64, {steady} ticks of "
+    print(f"controller tick ({type(ctl._tick.sampled).__name__}) B=64 N={N}, {steady} ticks of "
           "each in turns: " + "; ".join(
         f"{name} p50 {o['solve_time_us_p50']:.1f} us, p95 {o['solve_time_us_p95']:.1f} us, "
         f"{o['host_launches']} host-side launches, {o['device_launches']} device kernels and "
@@ -953,6 +970,9 @@ def main(argv=None):
                     help="time the QP step alone on each readable backend instead")
     ap.add_argument("--loops", action="store_true",
                     help="time the single-lane and readable loops, eager and graphed, instead")
+    ap.add_argument("--horizon", action="store_true",
+                    help="time K1 past one block (K1_HORIZONS), the B=64 loop and the "
+                    "controller tick at N=256, instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -975,6 +995,12 @@ def main(argv=None):
         result["readable"] = readable_section(dev)
     elif args.qp:
         result["qp"] = qp_section(dev)
+    elif args.horizon:
+        result["horizon"] = {
+            "k1": k1_sweep(dev, card, sweep=K1_HORIZONS),
+            "loop_n256": loop_modes(dev, 64, 100, N=256),
+            "controller_n256": controller_timing(dev, N=256),
+        }
     elif args.loops:
         result["loops"] = {
             **{loop: single_lane_modes(dev, loop) for loop in ("run_mpc", "run_tracking_mpc")},
@@ -985,8 +1011,8 @@ def main(argv=None):
         }
     else:
         print(f"K1: {K1.THREADS} threads a block by default, "
-              f"{K1.shared_bytes(64)} bytes of shared memory at N=64 (N <= {K1.MAX_N})",
-              flush=True)
+              f"{K1.shared_bytes(64)} bytes of shared memory at N=64; a cluster of blocks a "
+              f"lane past N={K1.MAX_SEGMENT} (N <= {K1.MAX_N})", flush=True)
         result.update(k1=k1_sweep(dev, card), k1_variants=k1_variants(dev), tick=tick_timing(dev),
                       controller=controller_timing(dev), k2=k2_section(args.baseline))
     if args.out:

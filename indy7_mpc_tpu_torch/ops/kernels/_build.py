@@ -108,8 +108,10 @@ def build() -> Path:
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # The C entries' parameter types: pointers and the stream as c_void_p.
 ARGTYPES = {
-    # model, params, 11 pointers, threads, stream
-    "indy7_sqp_solve": [_abi.ModelConsts, _abi.SolveParams] + [_PTR] * 11 + [_INT, _PTR],
+    # model, params, 11 pointers, threads, cluster size, stream
+    "indy7_sqp_solve": [_abi.ModelConsts, _abi.SolveParams] + [_PTR] * 11 + [_INT, _INT, _PTR],
+    # the largest cluster size the device schedules, out
+    "indy7_sqp_max_cluster": [_PTR],
     # controller and plant models, plant params, 13 pointers, threads, stream
     "indy7_tick_epilogue": [_abi.ModelConsts, _abi.ModelConsts, _abi.PlantParams]
     + [_PTR] * 13 + [_INT, _PTR],

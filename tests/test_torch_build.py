@@ -130,24 +130,67 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_sqp_shared_memory_layout_mirrors_the_source():
-    """The wrapper's per-knot and fixed shared floats and the block limit
-    are the kernel's constants (kKnotFloats, kFixedFloats, kSmemLimit)."""
+    """The wrapper's per-knot and fixed shared floats, alpha slots, work
+    floats, the block limit and the cluster limit are the kernel's
+    constants (kKnotFloats, kFixedFloats, kAlphaSlots, kWork, kSmemLimit,
+    kMaxCluster)."""
     text = (_build.CSRC_DIR / "sqp_kernel.cu").read_text()
     const = lambda name: int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
     assert (K1.KNOT_FLOATS, K1.FIXED_FLOATS, K1.SMEM_LIMIT) == (
         const("kKnotFloats"), const("kFixedFloats"), const("kSmemLimit"))
-    assert K1.MAX_ALPHAS == const("kMaxAlphas")
+    assert (K1.ALPHA_SLOTS, K1.WORK_FLOATS, K1.MAX_CLUSTER) == (
+        const("kAlphaSlots"), const("kWork"), const("kMaxCluster"))
 
 
 def test_sqp_horizon_limit():
-    """N=64 fits a block's 232,448 bytes; the largest horizon is N=174;
-    one more raises ValueError before any launch (no global fallback)."""
+    """One block holds up to 174 knots (N=64 in 86,960 bytes); past that a
+    lane takes the smallest cluster whose blocks' segments fit, up to the
+    portable 8 blocks, which hold N=1,392.  One knot more raises
+    ValueError before any launch (no global fallback)."""
     assert K1.shared_bytes(64) == 86_960 <= K1.SMEM_LIMIT == 232_448
-    assert K1.MAX_N == 174
-    assert K1.check_horizon(K1.MAX_N) == K1.shared_bytes(174) <= K1.SMEM_LIMIT
-    assert K1.shared_bytes(K1.MAX_N + 1) > K1.SMEM_LIMIT
+    assert K1.MAX_SEGMENT == 174 and K1.MAX_N == 8 * 174 == 1392
+    assert K1.check_horizon(64) == (1, 86_960)
+    assert K1.check_horizon(174) == (1, K1.shared_bytes(174))
+    assert K1.check_horizon(175) == (2, K1.shared_bytes(88))
+    assert K1.check_horizon(256) == (2, K1.shared_bytes(128))
+    assert K1.check_horizon(512) == (3, K1.shared_bytes(171))
+    assert K1.check_horizon(K1.MAX_N) == (8, K1.shared_bytes(174))
+    assert K1.shared_bytes(K1.MAX_SEGMENT + 1) > K1.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         K1.check_horizon(K1.MAX_N + 1)
+
+
+@pytest.mark.parametrize("N,cluster,fits", [
+    (96, 1, True), (96, 2, True), (96, 4, True), (2, 2, True), (13, 4, True),
+    (175, 1, False),  # a segment of 175 knots
+    (9, 4, False),    # segments of 3 leave the fourth block without knots
+    (96, 9, False),   # past the portable cluster size
+    (96, 0, False),
+])
+def test_sqp_cluster_override(N, cluster, fits):
+    """``cluster=`` picks the blocks a lane; a segment past a block's
+    shared memory, an empty block or a size out of [1, 8] raises."""
+    if fits:
+        assert K1.check_horizon(N, cluster=cluster) == (
+            cluster, K1.shared_bytes(-(-N // cluster)))
+    else:
+        with pytest.raises(ValueError):
+            K1.check_horizon(N, cluster=cluster)
+
+
+def test_sqp_alphas_size_the_layout():
+    """Up to 24 alphas the stage-4 pairs fit the 48 work floats of a knot
+    and only the merits grow (a slot an alpha past 16); past 24 the work
+    region takes two floats an alpha.  The horizon limits follow, and a
+    card that holds smaller clusters holds a shorter horizon."""
+    assert K1.layout(8) == K1.layout(16) == (329, 684)
+    assert K1.layout(20) == (329, 688)
+    assert K1.layout(30) == (341, 698)
+    assert K1.max_segment(20) == 174 and K1.max_segment(30) == (232_448 // 4 - 698) // 341
+    assert K1.check_horizon(96, 20) == (1, 4 * (96 * 329 + 688))
+    assert K1.max_horizon(8, clusters=4) == 696
+    with pytest.raises(ValueError, match="at most 4 blocks"):
+        K1.check_horizon(697, clusters=4)
 
 
 @pytest.mark.parametrize("stages", [1, 2, 3])

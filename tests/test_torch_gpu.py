@@ -28,7 +28,8 @@ from indy7_mpc_tpu_torch.mpc import (
 )
 from indy7_mpc_tpu_torch.mpc.fused_tick import consensus_args
 from indy7_mpc_tpu_torch.ops import lane_rbd as LR
-from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import MAX_N, sqp_solve
+from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
+from indy7_mpc_tpu_torch.ops.kernels.sqp_kernel import sqp_solve
 from indy7_mpc_tpu_torch.ops.kernels.tick_kernel import (
     tick_epilogue, tick_epilogue_plain,
 )
@@ -181,18 +182,60 @@ def test_sqp_kernel_stage_cut(cuda, stages):
 
 
 def test_sqp_kernel_horizon_limit(cuda):
-    """The largest horizon that fits a block's shared memory runs; one
-    more raises before any launch."""
+    """The longest horizon that fits the shared memory of a cluster this
+    card holds (N=1,392 in clusters of 8 blocks where the card holds
+    them) runs; one knot more raises before any launch."""
     sm = LR.static_model(indy7(torch.float32, cuda))
-    args, kw = _k1_inputs(cuda, 1, MAX_N + 1)
+    ceiling = K1.max_horizon(clusters=K1.max_cluster(cuda))
+    assert ceiling >= 512
+    args, kw = _k1_inputs(cuda, 1, ceiling + 1)
     before = sqp_solve.launches
     with pytest.raises(ValueError, match="shared memory"):
         sqp_solve(sm, COST, SQP, DT, *args, **kw)
     assert sqp_solve.launches == before
-    args, kw = _k1_inputs(cuda, 1, MAX_N)
+    args, kw = _k1_inputs(cuda, 1, ceiling)
     out = sqp_solve(sm, COST, SQP, DT, *args, **kw)
     torch.cuda.synchronize()
     assert all(torch.isfinite(t).all() for t in out)
+
+
+@pytest.mark.parametrize("lanes", [1, 64])
+@pytest.mark.parametrize("horizon", [175, 256, 512])
+def test_sqp_kernel_past_one_block_matches_plain(cuda, horizon, lanes):
+    """K1 with the lane's horizon over a cluster of 2 (N=175, 256) or 3
+    (N=512) blocks against the plain version on a fresh solve: alphas
+    equal, X and U within the scaled 6e-3."""
+    assert K1.cluster_size(horizon) == (2 if horizon < 512 else 3)
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    _k1_against_plain(sm, SQP, *_k1_inputs(cuda, lanes, horizon))
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_sqp_kernel_same_bits_at_any_cluster_size(cuda, cluster):
+    """Every sum over knots is taken by one thread in knot order, over the
+    cluster's shared memory, so N=96 in one block and in clusters of 2 and
+    4 blocks (the ``cluster=`` override) gives the same bits."""
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    args, kw = _k1_inputs(cuda, 16, 96)
+    one = sqp_solve(sm, COST, SQP, DT, *args, **kw, cluster=1)
+    before = sqp_solve.launches
+    many = sqp_solve(sm, COST, SQP, DT, *args, **kw, cluster=cluster)
+    assert sqp_solve.launches == before + 1
+    torch.cuda.synchronize()
+    for a, b in zip(one, many):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("num_alphas", [20, 30])
+def test_sqp_kernel_more_alphas_match_plain(cuda, num_alphas):
+    """Past 16 alphas the merits take a slot an alpha, past 24 the work
+    region two floats an alpha: K1 against the plain version, in one
+    block (N=96) and in a cluster (N=256)."""
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    sqp = dataclasses.replace(SQP, num_alphas=num_alphas)
+    for horizon in (96, 256):
+        _k1_against_plain(sm, sqp, *_k1_inputs(cuda, 16, horizon))
 
 
 TICK_CASES = {
@@ -883,8 +926,18 @@ def test_graphed_loop_equals_eager_loop(cuda):
     nine 1-tick graphs) against 20 eager calls of the same tick module at
     B=64/N=64 on the perturbed plant: trace, carry and generator state bit
     for bit; K1 and K2 counted once a tick."""
-    ticks = 20
-    tick, carry, gen, (cfgs, x0, ref) = _fig8_loop(cuda, 64, 64)
+    _graphed_against_eager(cuda, 64, 64)
+
+
+def test_graphed_loop_past_one_block_equals_eager_loop(cuda):
+    """The same at B=8, N=256, K1 in clusters of 2 blocks a lane: the
+    cluster launch is captured, and its replays give the eager bits."""
+    assert K1.cluster_size(256) == 2
+    _graphed_against_eager(cuda, 8, 256)
+
+
+def _graphed_against_eager(cuda, lanes, horizon, ticks=20):
+    tick, carry, gen, (cfgs, x0, ref) = _fig8_loop(cuda, lanes, horizon)
     rows = []
     for _ in range(ticks):
         carry, row = tick(carry)

@@ -55,6 +55,13 @@
 // DSMEM (each block takes it and gets the same bits, so each keeps its own
 // lane state), so the result is the same bits for every C.  C = 1 is the
 // kernel without the cluster (sqp_kernel<false>, a plain launch).
+//
+// Stage clocks (tracing.py): every launch takes a device word and an
+// accumulator of kClockSlots counters.  Thread 0 of each block reads the
+// word once; when it is set, that thread reads clock64() after the barrier
+// that closes each stage and adds the stage's cycles at once (one
+// timestamp, kept in the lane state).  Off, they cost one load a block.
+// Either way the outputs are the same bits.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -100,18 +107,31 @@ static_assert(kKnotFloats == kX + kU + kG + kDa + kMinv + kD + kQv + kSc + kJ +
               "kKnotFloats");
 static_assert(2 * kAlphaSlots <= kWork, "stage 4 pairs fit the work region");
 
-// Per-lane scalars, in the first floats of the fixed region.
+// Per-lane scalars, in the first floats of the fixed region, and the
+// block's stage clocks (thread 0's; see stage_clock).
 struct LaneState {
   float rho, base_merit, scale;
   int done;
+  int clocks;                  // the stage clocks are on in this launch
+  unsigned int t_entry;        // clock64()'s low 32 bits at the block's entry
+  unsigned long long t_stage;  // clock64() at the last stage boundary
 };
-constexpr int kState = 4;
+constexpr int kState = 8;
+static_assert(sizeof(LaneState) == 4 * kState, "kState");
 // Fixed region: the lane state, S (stored before its symmetrization), SA,
 // SB, Qxx, Qxu, Quu, s, Sc, qx, qu, the per-alpha merits and the wrench.
 constexpr int kFixedFloats = 684;
 static_assert(kFixedFloats ==
-                  kState + 4 + 144 * 3 + 72 * 2 + 36 + 12 * 3 + 6 + kAlphaSlots + 6,
+                  kState + 144 * 3 + 72 * 2 + 36 + 12 * 3 + 6 + kAlphaSlots + 6,
               "kFixedFloats");
+
+// The slots of the stage clocks' accumulator (tracing.K1_SLOTS): the
+// cycles of the prologue's load, of stages 1-4 over every iteration, of
+// the epilogue's store and of the whole block, each summed over the
+// blocks, and the number of blocks timed.
+constexpr int kClkPrologue = 0, kClkLinearize = 1, kClkRiccati = 2, kClkRollout = 3;
+constexpr int kClkLineSearch = 4, kClkEpilogue = 5, kClkTotal = 6, kClkBlocks = 7;
+constexpr int kClockSlots = 8;
 
 // The alpha slots, the work floats a knot, and the floats a knot and of
 // the fixed region, for num_alphas alphas.
@@ -158,7 +178,7 @@ DEV Smem carve(float* base, int num_alphas, int seg, int lo, int hi, int rank, i
   s.nblk = nblk;
   float* p = base;
   s.st = reinterpret_cast<LaneState*>(p);
-  p += kState + 4;
+  p += kState;
   s.S = p;    p += 144;
   s.SA = p;   p += 144;
   s.SB = p;   p += 72;
@@ -211,6 +231,19 @@ DEV const float* segment(const Smem& s, float* region, int q) {
     if (q != s.rank) return cg::this_cluster().map_shared_rank(region, q);
   }
   return region;
+}
+
+// With the stage clocks on, thread 0 adds the cycles since the last stage
+// boundary to `slot`.  Called right after the barrier that closes the
+// stage, so they cover the whole block's (in a cluster, this block's) work
+// on it; the last boundary's time waits in shared memory, not in a
+// register.
+DEV void stage_clock(LaneState* st, unsigned long long* clocks, int slot) {
+  if (threadIdx.x == 0 && st->clocks) {
+    const unsigned long long t = clock64();
+    atomicAdd(clocks + slot, t - st->t_stage);
+    st->t_stage = t;
+  }
 }
 
 // A barrier over the lane's blocks: the cluster's, or the block's.
@@ -673,7 +706,8 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
            const float* __restrict__ U, const float* __restrict__ w,
            const float* __restrict__ rho_in, float* __restrict__ Xo,
            float* __restrict__ Uo, float* __restrict__ rho_out,
-           float* __restrict__ alpha_log, float* __restrict__ step_log) {
+           float* __restrict__ alpha_log, float* __restrict__ step_log,
+           const int* __restrict__ clock_on, unsigned long long* __restrict__ clocks) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int B = p.B, N = p.N, Nm1 = N - 1, NA = p.num_alphas;
@@ -691,6 +725,10 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
   const int lo = rank * seg, hi = min(lo + seg, N), hr = min(hi, Nm1);
   const Smem s = carve(smem, NA, seg, lo, hi, rank, nblk);
   const bool logs = tid == 0 && rank == 0;  // the thread that writes the lane's outputs
+  // The entry time, and thread 0's one read of the stage clocks' word,
+  // first used after the gather, so that the gather hides its latency.
+  const long long t_entry = clock64();
+  const int clocks_on = tid == 0 && clock_on != nullptr ? *clock_on : 0;
 
   // Gather the segment's trajectory and goals, the lane's wrench (stride B
   // in global).
@@ -705,8 +743,12 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
   if (tid == 0) {
     s.st->rho = rho_in[lane];
     s.st->done = 0;
+    s.st->clocks = clocks_on != 0;
+    s.st->t_stage = static_cast<unsigned long long>(t_entry);
+    s.st->t_entry = static_cast<unsigned int>(t_entry);
   }
   lane_sync<Cl>();
+  stage_clock(s.st, clocks, kClkPrologue);
 
   for (int it = 0; it < p.max_iters; ++it) {
     // ---- Stage 1a: dynamics of knots lo..hr-1, cost data of knots
@@ -723,12 +765,17 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
     if (tid == nt - 1) s.st->base_merit = base_merit<Cl>(p, s);
     for (int e = tid; e < (hr - lo) * NX; e += nt) tangent_item(m, p, s, lo + e / NX, e % NX);
     __syncthreads();
+    stage_clock(s.st, clocks, kClkLinearize);
 
     if (p.stages >= 2) {
       // ---- Stage 2: Riccati sweep; stage 3: rollout (each ends on a
       // barrier) ----
       backward_sweep<Cl>(p, s);
-      if (p.stages >= 3) forward_rollout<Cl>(p, s);
+      stage_clock(s.st, clocks, kClkRiccati);
+      if (p.stages >= 3) {
+        forward_rollout<Cl>(p, s);
+        stage_clock(s.st, clocks, kClkRollout);
+      }
     }
     if (p.stages < 4) {  // profiling cut: no line search, no update
       if (logs) {
@@ -798,6 +845,7 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
       for (int e = tid; e < (hr - lo) * kU; e += nt) s.U[e] += scale * s.dU[e];
     }
     lane_sync<Cl>();
+    stage_clock(s.st, clocks, kClkLineSearch);
   }
 
   // Scatter the segment's result.
@@ -805,7 +853,18 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
   for (int e = tid; e < (hr - lo) * kU; e += nt) Uo[(lo * kU + e) * nB + lane] = s.U[e];
   if (logs) rho_out[lane] = s.st->rho;
   // No block leaves while another may still read its shared memory.
-  if constexpr (Cl) cg::this_cluster().sync();
+  if constexpr (Cl) {
+    cg::this_cluster().sync();
+  } else {
+    if (s.st->clocks) __syncthreads();  // the same in every thread: the block's stores timed
+  }
+  if (tid == 0 && s.st->clocks) {
+    const unsigned long long t = clock64();
+    atomicAdd(clocks + kClkEpilogue, t - s.st->t_stage);
+    atomicAdd(clocks + kClkTotal,
+              static_cast<unsigned long long>(static_cast<unsigned int>(t) - s.st->t_entry));
+    atomicAdd(clocks + kClkBlocks, 1ULL);
+  }
 }
 
 }  // namespace indy7
@@ -878,7 +937,9 @@ extern "C" int indy7_sqp_solve(indy7::ModelConsts m, indy7::SolveParams p,
                                const float* X, const float* U, const float* w,
                                const float* rho_in, float* Xo, float* Uo,
                                float* rho_out, float* alpha_log,
-                               float* step_log, int threads, int cluster, void* stream) {
+                               float* step_log, const int* clock_on,
+                               unsigned long long* clocks, int threads, int cluster,
+                               void* stream) {
   if (cluster < 1 || cluster > indy7::kMaxCluster || p.N < 2 || p.num_alphas < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int seg = (p.N + cluster - 1) / cluster;
@@ -891,7 +952,7 @@ extern "C" int indy7_sqp_solve(indy7::ModelConsts m, indy7::SolveParams p,
   if (cluster == 1) {
     const cudaError_t err = allow_shared_memory<false>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    indy7::sqp_kernel<false><<<p.B, threads, bytes, st>>>(m, p, xs, goals, X, U, w, rho_in, Xo, Uo, rho_out, alpha_log, step_log);
+    indy7::sqp_kernel<false><<<p.B, threads, bytes, st>>>(m, p, xs, goals, X, U, w, rho_in, Xo, Uo, rho_out, alpha_log, step_log, clock_on, clocks);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err = allow_shared_memory<true>();
@@ -899,7 +960,7 @@ extern "C" int indy7_sqp_solve(indy7::ModelConsts m, indy7::SolveParams p,
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(p.B * cluster, threads, bytes, cluster, st, &attr);
   err = cudaLaunchKernelEx(&cfg, indy7::sqp_kernel<true>, m, p, xs, goals, X, U, w, rho_in,
-                           Xo, Uo, rho_out, alpha_log, step_log);
+                           Xo, Uo, rho_out, alpha_log, step_log, clock_on, clocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from ..ops.kernels.sqp_kernel import sqp_solve
 from ..ops.kernels.tick_kernel import tick_epilogue
 from .sampled import SampledLoopCarry, TickDraws
@@ -56,7 +57,8 @@ class TickGraph:
     what the capture recorded (``launches``, one entry a wrapper).  A
     capture that fails raises RuntimeError naming ``what``.  ``seconds``
     is the capture's and the instantiation's host time, ``pool_bytes``
-    what the caching allocator reserved for the graph's pool.
+    what the caching allocator reserved for the graph's pool.  A capture
+    counts in ``tracing.counters()``' ``graph_captures``.
     """
 
     def __init__(self, body: Callable[[], None], ticks: int = 1,
@@ -78,6 +80,7 @@ class TickGraph:
             for f, n in zip(COUNTED, before):
                 f.launches = n
         self.seconds = time.perf_counter() - t0
+        tracing.counts["graph_captures"] += 1
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
         self.graph, self.ticks = graph, ticks
 

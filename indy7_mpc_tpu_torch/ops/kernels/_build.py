@@ -31,8 +31,8 @@ NVCC_FLAGS = (
 
 
 # Kernel-library events in this process: nvcc builds and loads of the
-# library.  A tick that pays one of them stalls; tools/latency_decomp.py
-# counts them over a control loop.
+# library.  A tick that pays one of them stalls; tracing.counters()
+# reports them.
 counts = {"builds": 0, "loads": 0}
 
 
@@ -108,8 +108,9 @@ def build() -> Path:
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # The C entries' parameter types: pointers and the stream as c_void_p.
 ARGTYPES = {
-    # model, params, 11 pointers, threads, cluster size, stream
-    "indy7_sqp_solve": [_abi.ModelConsts, _abi.SolveParams] + [_PTR] * 11 + [_INT, _INT, _PTR],
+    # model, params, 11 pointers, the stage clocks' word and cycles, threads,
+    # cluster size, stream
+    "indy7_sqp_solve": [_abi.ModelConsts, _abi.SolveParams] + [_PTR] * 13 + [_INT, _INT, _PTR],
     # the largest cluster size the device schedules, out
     "indy7_sqp_max_cluster": [_PTR],
     # controller and plant models, plant params, 13 pointers, threads, stream

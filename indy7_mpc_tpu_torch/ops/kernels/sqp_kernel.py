@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from ... import tracing
 from ...config import CostConfig, SQPConfig
 from ...solvers.sqp_lane import solve_lane_major
 from .. import lane_rbd as LR
@@ -182,6 +183,10 @@ def sqp_solve(
     block size and ``cluster`` the blocks a lane (default
     :func:`cluster_size`); the result is the same bits for every block and
     cluster size.
+
+    On CUDA every launch passes the card's stage clocks
+    (``tracing.k1_clocks``); with tracing on, K1 adds its cycles by stage
+    to them (``tracing.k1_stage_cycles``), with the same outputs.
     """
     require_kernel_config(cost_cfg, sqp_cfg)
     if stages not in (1, 2, 3, 4):
@@ -216,6 +221,7 @@ def sqp_solve(
         _check("wrench", wrench, (6, B), device)
 
     lib = _build.load_library()
+    clock_on, clocks = tracing.k1_clocks(device)
     iters = sqp_cfg.max_iters
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
     Xo, Uo, rho_out = empty(N, 12, B), empty(N - 1, 6, B), empty(B)
@@ -228,7 +234,7 @@ def sqp_solve(
             _ptr(xs), _ptr(goals), _ptr(X), _ptr(U),
             None if wrench is None else _ptr(wrench), _ptr(rho),
             _ptr(Xo), _ptr(Uo), _ptr(rho_out), _ptr(alphas), _ptr(steps),
-            threads, blocks, ctypes.c_void_p(stream),
+            _ptr(clock_on), _ptr(clocks), threads, blocks, ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"SQP kernel launch failed: CUDA error {rc}")

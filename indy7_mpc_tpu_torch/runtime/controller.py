@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..config import CostConfig, MPCConfig, SampleConfig, SQPConfig
 from ..models.convert import controller_state_from_npz
 from ..models.robot import RobotModel
@@ -86,7 +87,8 @@ class ControllerTickRunner:
 
     :meth:`step` loads the input (from a pinned host buffer in one copy,
     or, for an observed state already on the card, that state's device
-    copy and the offset's), runs the tick and fetches ``host``.  On CUDA,
+    copy and the offset's), runs the tick and fetches ``host``: the spans
+    ``ctl.input``, ``ctl.replay`` and ``ctl.fetch`` (``tracing``).  On CUDA,
     for the two-kernel tick and the readable one alike, on a one-rank mesh,
     :meth:`capture` records one tick as a CUDA graph
     (``mpc.graphed.TickGraph``, the controller's generator registered), and
@@ -148,25 +150,28 @@ class ControllerTickRunner:
         eager body: a captured tick draws from the generator."""
         if normals is not None and self.graphable:
             raise ValueError("the captured tick draws its normals from the generator")
-        self.staged[-1:].view(torch.int32)[0] = offset
-        if isinstance(x_obs, torch.Tensor) and x_obs.device == self.inp.device:
-            self.inp[:-1].copy_(x_obs)
-            if self.staged is not self.inp:
-                self.inp[-1:].copy_(self.staged[-1:], non_blocking=True)
-        else:
-            self.staged[:-1].copy_(torch.as_tensor(np.asarray(x_obs)))
-            if self.staged is not self.inp:
-                self.inp.copy_(self.staged, non_blocking=True)
-        if not self.has_last:
-            self.x_last.copy_(self.inp[:-1])
-            self.has_last = True
-        if self.graph is not None:
-            self.graph.replay()
-        else:
-            self._body(normals)
-            if self.graphable:
-                self.capture()
-        return self.host.to("cpu", copy=True).numpy()
+        with tracing.span("ctl.input"):
+            self.staged[-1:].view(torch.int32)[0] = offset
+            if isinstance(x_obs, torch.Tensor) and x_obs.device == self.inp.device:
+                self.inp[:-1].copy_(x_obs)
+                if self.staged is not self.inp:
+                    self.inp[-1:].copy_(self.staged[-1:], non_blocking=True)
+            else:
+                self.staged[:-1].copy_(torch.as_tensor(np.asarray(x_obs)))
+                if self.staged is not self.inp:
+                    self.inp.copy_(self.staged, non_blocking=True)
+            if not self.has_last:
+                self.x_last.copy_(self.inp[:-1])
+                self.has_last = True
+        with tracing.span("ctl.replay"):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self._body(normals)
+                if self.graphable:
+                    self.capture()
+        with tracing.span("ctl.fetch"):  # the tick's one blocking transfer
+            return self.host.to("cpu", copy=True).numpy()
 
 
 class _StateBuffer:
@@ -218,6 +223,7 @@ class SampledController:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self.ref_offset = 0.0
+        self.tick_count = 0  # on_state calls: the tick id of its spans
         f_batch = init_wrench_batch(self.generator, sample_cfg, torch.float32, self.device)
         self.f_ext_actual = np.zeros(3) if f_ext_actual is None else np.asarray(
             f_ext_actual, float
@@ -284,13 +290,17 @@ class SampledController:
         device->host fetch brings the small outputs (u, best lane, wrench
         estimate, current reference, EE, tracking error); the warm-start
         trajectory and hypothesis batch stay on the device.
-        ``solve_time_us`` times all three.
+        ``solve_time_us`` times all three.  With ``tracing`` on, the tick
+        is the span ``ctl.on_state`` (its tick id ``tick_count``) around
+        the runner's three.
         """
-        self.ref_offset += elapsed / self.mpc_cfg.dt
-        t0 = time.perf_counter()
-        # The tick's ONLY synchronizing transfer is the fetch at its end.
-        host = self.runner.step(x_obs, int(self.ref_offset))
-        solve_time_us = (time.perf_counter() - t0) * 1e6
+        with tracing.span("ctl.on_state", self.tick_count):
+            self.ref_offset += elapsed / self.mpc_cfg.dt
+            t0 = time.perf_counter()
+            # The tick's ONLY synchronizing transfer is the fetch at its end.
+            host = self.runner.step(x_obs, int(self.ref_offset))
+            solve_time_us = (time.perf_counter() - t0) * 1e6
+        self.tick_count += 1
         info = {
             "best_idx": int(host[6]),
             "f_est": host[7:13].copy(),

@@ -35,12 +35,11 @@ seed and offset) and the fetch; the graph's kernels are device work.
 
 The stall hunt, this port's counterpart of the TPU tool's JIT-compile log,
 counts what happens in the loop after its first tick (the first tick's
-allocator growth is warm-up): builds and loads of the kernel library
-(``ops/kernels/_build.py``'s ``counts``), growth of the CUDA caching
-allocator (``torch.cuda.memory_stats``' ``segment.all.allocated`` and
-``num_alloc_retries``) and Python generation-2 collections
-(``gc.callbacks``), and lists every tick above ``--stall-ms`` with the
-events that fell in it.
+allocator growth is warm-up), from the port's stall counters
+(``tracing.counters()``): builds and loads of the kernel library, growth
+of the CUDA caching allocator (segments and allocation retries) and
+Python generation-2 collections, and lists every tick above
+``--stall-ms`` with the events that fell in it.
 
 Writes ``--out`` (``LATENCY_TORCH.md``; never the TPU tool's
 ``LATENCY.md``) and prints one JSON line with the TPU tool's keys.
@@ -52,7 +51,6 @@ Usage: python3 -m indy7_mpc_tpu_torch.tools.latency_decomp [--ticks 600]
 from __future__ import annotations
 
 import argparse
-import gc
 import json
 import sys
 from pathlib import Path
@@ -60,11 +58,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import measure
+from .. import measure, tracing
 from ..config import PERTURBED_PLANT, CostConfig, SQPConfig
 from ..examples import protocol
 from ..models import indy7
-from ..ops.kernels import _build
 from ..runtime import InProcessPlant, run_control_loop
 from ..solvers.select import default_batch_solve_fn
 
@@ -85,34 +82,18 @@ def p50_p95(a):
 
 
 class StallHunt:
-    """Running counts of the events that can stall a control tick: kernel
-    library builds and loads, CUDA caching-allocator segments and
-    allocation retries (on a card), and Python generation-2 collections
-    while it is entered."""
+    """Running counts of the events that can stall a control tick on
+    ``dev``, by :data:`EVENT_KINDS`, read from ``tracing.counters()``:
+    kernel library builds and loads, CUDA caching-allocator segments and
+    allocation retries (on a card), and Python generation-2 collections."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
-        self.gc_gen2 = 0
-
-    def _on_gc(self, phase, info):
-        if phase == "start" and info["generation"] == 2:
-            self.gc_gen2 += 1
-
-    def __enter__(self):
-        gc.callbacks.append(self._on_gc)
-        return self
-
-    def __exit__(self, *exc):
-        gc.callbacks.remove(self._on_gc)
 
     def counts(self) -> dict:
-        c = {"library_builds_or_loads": _build.counts["builds"] + _build.counts["loads"],
-             "allocator_segments": 0, "alloc_retries": 0, "gc_gen2": self.gc_gen2}
-        if self.dev.type == "cuda":
-            stats = torch.cuda.memory_stats(self.dev)
-            c["allocator_segments"] = stats.get("segment.all.allocated", 0)
-            c["alloc_retries"] = stats.get("num_alloc_retries", 0)
-        return c
+        c = tracing.counters(self.dev)
+        return {"library_builds_or_loads": c["library_builds"] + c["library_loads"],
+                **{k: c[k] for k in EVENT_KINDS[1:]}}
 
 
 def diff(after: dict, before: dict) -> dict:
@@ -126,18 +107,18 @@ def closed_loop(model, B, N, ticks, dev):
     after the first tick)."""
     ctl = measure.runtime_controller(dev, B, N)
     plant = InProcessPlant(model, np.zeros(12), DT, plant_cfg=PERTURBED_PLANT, device=dev)
-    with StallHunt(dev) as hunt:
-        marks = [hunt.counts()]
-        inner = ctl.on_state
+    hunt = StallHunt(dev)
+    marks = [hunt.counts()]
+    inner = ctl.on_state
 
-        def on_state(x, elapsed):
-            out = inner(x, elapsed)
-            marks.append(hunt.counts())  # after the tick's own clock stopped
-            return out
+    def on_state(x, elapsed):
+        out = inner(x, elapsed)
+        marks.append(hunt.counts())  # after the tick's own clock stopped
+        return out
 
-        ctl.on_state = on_state
-        rec = run_control_loop(ctl, plant, duration=1e9, rate_hz=100, walk_disturbance=True,
-                               realtime=False, max_ticks=ticks)
+    ctl.on_state = on_state
+    rec = run_control_loop(ctl, plant, duration=1e9, rate_hz=100, walk_disturbance=True,
+                           realtime=False, max_ticks=ticks)
     plant.close()
     tick_us = rec._fetch("solve_times")
     per_tick = [diff(b, a) for a, b in zip(marks, marks[1:])]

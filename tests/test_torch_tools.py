@@ -86,15 +86,15 @@ def test_latency_decomp_main(capsys, tmp_path, monkeypatch):
 
 
 def test_stall_hunt_counts_its_events():
-    dev = torch.device("cpu")
-    with latency_decomp.StallHunt(dev) as hunt:
-        before = hunt.counts()
-        gc.collect()
-        _build.counts["loads"] += 1
-        try:
-            after = hunt.counts()
-        finally:
-            _build.counts["loads"] -= 1
+    hunt = latency_decomp.StallHunt(torch.device("cpu"))
+    before = hunt.counts()
+    gc.collect()
+    _build.counts["loads"] += 1
+    try:
+        after = hunt.counts()
+    finally:
+        _build.counts["loads"] -= 1
+    assert set(before) == set(after) == set(latency_decomp.EVENT_KINDS)
     got = latency_decomp.diff(after, before)
     assert got["gc_gen2"] >= 1 and got["library_builds_or_loads"] == 1
     assert got["allocator_segments"] == got["alloc_retries"] == 0  # no CUDA allocator here

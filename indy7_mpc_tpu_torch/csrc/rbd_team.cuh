@@ -1,7 +1,7 @@
 // Team routines of the tick-epilogue kernel K2 (sm_90a): one RK4 step of
 // forward dynamics spread over a team of kTeam = 8 threads of one warp.
 //
-// The per-thread routines of rbd.cuh (K1 uses them) stay as they are;
+// rbd.cuh's per-thread routines (K2's thread path runs them) stay as they are;
 // these follow their arithmetic, item by item, with the work of a stage
 // split over the team:
 //   (a) joint j's rotation and torque (with the plant's friction), by
@@ -227,7 +227,7 @@ DEV void map_wrench(const ModelConsts& m, const float (*R)[3][3], const float* w
   mtv33(Rw, nn, nl);
 }
 
-// ee_pos() with its joint loop unrolled (one thread).
+// fk_last()'s position with its joint loop unrolled (one thread).
 DEV void ee_pos_unrolled(const ModelConsts& m, const float* q, float* pw) {
   float Rw[3][3];
 #pragma unroll

@@ -34,9 +34,15 @@
 // Every cooperative loop is `for (i = tid; i < n; i += nthreads)` between
 // barriers, and every sum is taken by one thread in a fixed order, so the
 // result is the same bits for any block size.  No tensor cores: the
-// products are 12x12 and the recursion needs full f32.  The Dual RNEA of
-// stage 1b takes the 255 registers a thread may have, so 256 threads fill
-// an SM's register file: one block per SM, 64 of 132 SMs at B=64.
+// products are 12x12 and the recursion needs full f32.  The rigid-body
+// items of stages 1 and 4 run rbd_unrolled.cuh's routines, whose per-link
+// arrays live in registers: they take the 255 registers a thread may have,
+// so 256 threads fill an SM's register file: one block per SM, 64 of 132
+// SMs at B=64.  The local-memory frame is what sincosf's slow path, the
+// rollout's du and a few words of loop state need (64 bytes a thread in
+// sqp_kernel<false>, ptxas, PERF.md); with rbd.cuh's looped routines it
+// was 1,824 bytes, which went through L2 and slowed linearize and the
+// line search the more blocks ran at once.
 //
 // Past 174 knots one block's 227 KB cannot hold the horizon, which the TPU
 // kernel keeps whole in VMEM.  The lane then takes a cluster of C blocks
@@ -68,6 +74,7 @@
 #include <atomic>
 
 #include "rbd.cuh"
+#include "rbd_unrolled.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -260,6 +267,7 @@ DEV float barrier(const ModelConsts& m, const SolveParams& p, const float* q,
                   float* gb, float* hb) {
   float cb = 0.f;
   const float w = p.q_barrier;
+#pragma unroll
   for (int i = 0; i < NQ; ++i) {
     const float hi = m.q_upper[i] - p.q_barrier_margin;
     const float lo = m.q_lower[i] + p.q_barrier_margin;
@@ -278,11 +286,14 @@ DEV void cost_item(const ModelConsts& m, const SolveParams& p, const Smem& s,
                    int k) {
   const int kl = k - s.lo;
   float x[NX], goal[3];
+#pragma unroll
   for (int r = 0; r < NX; ++r) x[r] = s.X[kl * kX + r];
+#pragma unroll
   for (int r = 0; r < 3; ++r) goal[r] = s.G[kl * kG + r];
   float pe[3], J[3][NJ];
-  ee_pos_jacobian(m, x, pe, J);
+  unrolled::ee_pos_jacobian(m, x, pe, J);
   float err[3];
+#pragma unroll
   for (int a = 0; a < 3; ++a) err[a] = pe[a] - goal[a];
   const float err2 = err[0] * err[0] + err[1] * err[1] + err[2] * err[2];
   const float scale = p.regularize ? 1.f / (sqrtf(err2) + p.eps) : 1.f;
@@ -295,11 +306,13 @@ DEV void cost_item(const ModelConsts& m, const SolveParams& p, const Smem& s,
   float* sc = s.sc + kl * kSc;
   float* Jk = s.J + kl * kJ;
   float v2 = 0.f;
+#pragma unroll
   for (int i = 0; i < NQ; ++i) {
     const float gp = 2.f * (J[0][i] * err[0] + J[1][i] * err[1] + J[2][i] * err[2]);
     qv[i] = gp + gb[i];
     qv[NQ + i] = twodQ * x[NQ + i];
     sc[2 + i] = hb[i];
+#pragma unroll
     for (int a = 0; a < 3; ++a) Jk[a * NQ + i] = J[a][i];
     v2 += x[NQ + i] * x[NQ + i];
   }
@@ -313,45 +326,55 @@ DEV void cost_item(const ModelConsts& m, const SolveParams& p, const Smem& s,
 
 // Stage 1a, dynamics item of knot k < N-1: forward dynamics (a, L, invD
 // kept in the knot's work for stage 1b), dt M^-1, the Euler defect, u^2
-// and the defect norms.
+// and the defect norms.  The joint rotations are formed once, for the
+// wrench map and the dynamics.
 template <bool Cl>
 DEV void dynamics_item(const ModelConsts& m, const SolveParams& p,
                        const Smem& s, int k) {
   const float dt = p.dt;
   const int kl = k - s.lo;
   const float* xk1 = knot_at<Cl>(s, s.X, kX, k + 1);
-  float x[NX], xn[NX], u[NU];
-  for (int r = 0; r < NX; ++r) {
-    x[r] = s.X[kl * kX + r];
-    xn[r] = xk1[r];
-  }
+  float x[NX], u[NU];
+#pragma unroll
+  for (int r = 0; r < NX; ++r) x[r] = s.X[kl * kX + r];
+#pragma unroll
   for (int r = 0; r < NU; ++r) u[r] = s.U[kl * kU + r];
   const float* q = x;
   const float* v = x + NQ;
-  float fl[3], nl[3];
-  if (p.use_wrench) world_wrench_to_ee(m, q, s.w, fl, nl);
+  float R[NJ][3][3], fl[3], nl[3];
+  unrolled::rotations(m, q, R);
+  if (p.use_wrench) {
+    float Rw[3][3], pw[3];
+    unrolled::fk_last(m, R, Rw, pw);
+    unrolled::wrench_to_ee(Rw, pw, s.w, fl, nl);
+  }
   float a[NJ], L[6][6], invD[6];
-  forward_dynamics(m, q, v, u, p.use_wrench ? fl : nullptr,
-                   p.use_wrench ? nl : nullptr, a, L, invD);
+  unrolled::forward_dynamics(m, R, v, u, p.use_wrench, fl, nl, a, L, invD);
   float* wk = s.work + kl * s.kw;
+#pragma unroll
   for (int i = 0; i < NJ; ++i) {
     wk[i] = a[i];
+#pragma unroll
     for (int j = 0; j < i; ++j) wk[6 + i * 6 + j] = L[i][j];
     wk[42 + i] = invD[i];
   }
   // dt * M^-1, row i*6+j = dt * Minv[i][j].
   float* minv = s.minv + kl * kMinv;
+#pragma unroll
   for (int j = 0; j < NU; ++j) {
     float e[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, col[6];
     e[j] = 1.f;
-    ldl6_solve(L, invD, e, col);
+    unrolled::ldl6_solve(L, invD, e, col);
+#pragma unroll
     for (int i = 0; i < NU; ++i) minv[i * NU + j] = dt * col[i];
   }
-  // Euler defect d = [q + dt v; v + dt a] - x_{k+1}.
+  // Euler defect d = [q + dt v; v + dt a] - x_{k+1}, x_{k+1} read only now
+  // (not held in registers through the dynamics).
   float dq2 = 0.f, dv2 = 0.f, u2 = 0.f;
+#pragma unroll
   for (int i = 0; i < NQ; ++i) {
-    const float dq = (q[i] + dt * v[i]) - xn[i];
-    const float dv = (v[i] + dt * a[i]) - xn[NQ + i];
+    const float dq = (q[i] + dt * v[i]) - xk1[i];
+    const float dv = (v[i] + dt * a[i]) - xk1[NQ + i];
     s.d[kl * kD + i] = dq;
     s.d[kl * kD + NQ + i] = dv;
     dq2 += dq * dq;
@@ -370,23 +393,25 @@ DEV void tangent_item(const ModelConsts& m, const SolveParams& p,
   const int kl = k - s.lo;
   const float* x = s.X + kl * kX;
   const float* wk = s.work + kl * s.kw;
-  Dual qd[NQ], vd[NQ], ad[NQ], taud[NQ], fld[3], nld[3];
+  Dual qd[NQ], vd[NQ], ad[NQ];
+#pragma unroll
   for (int i = 0; i < NQ; ++i) {
     qd[i] = Dual(x[i], t == i ? 1.f : 0.f);
     vd[i] = Dual(x[NQ + i], t == NQ + i ? 1.f : 0.f);
     ad[i] = Dual(wk[i]);
   }
-  if (p.use_wrench) world_wrench_to_ee(m, qd, s.w, fld, nld);
-  rnea(m, qd, vd, ad, p.use_wrench ? fld : nullptr,
-       p.use_wrench ? nld : nullptr, taud);
-  float L[6][6], invD[6], dtau[NQ], sol[NQ];
+  float dtau[NQ];
+  unrolled::rnea_tangent(m, qd, vd, ad, p.use_wrench, s.w, dtau);
+  float L[6][6], invD[6], sol[NQ];
+#pragma unroll
   for (int i = 0; i < NJ; ++i) {
+#pragma unroll
     for (int j = 0; j < i; ++j) L[i][j] = wk[6 + i * 6 + j];
     invD[i] = wk[42 + i];
-    dtau[i] = taud[i].d;
   }
-  ldl6_solve(L, invD, dtau, sol);
+  unrolled::ldl6_solve(L, invD, dtau, sol);
   float* da = s.da + kl * kDa;
+#pragma unroll
   for (int i = 0; i < NQ; ++i) da[i * NX + t] = p.dt * -sol[i];
 }
 
@@ -613,24 +638,27 @@ DEV void forward_rollout(const SolveParams& p, const Smem& s) {
   }
 }
 
-// Merit cost of one knot state: qmod * (err^2 + barrier) + dQ v^2.
+// Merit cost of one knot state x with EE position pe: qmod * (err^2 +
+// barrier) + dQ v^2.
 DEV float merit_knot_cost(const ModelConsts& m, const SolveParams& p,
-                          const float* x, const float* goal, float qmod) {
-  float pe[3];
-  ee_pos(m, x, pe);
+                          const float* x, const float* pe, const float* goal, float qmod) {
   float pos = 0.f;
+#pragma unroll
   for (int a = 0; a < 3; ++a) pos += (pe[a] - goal[a]) * (pe[a] - goal[a]);
   if (p.q_barrier != 0.f) {
     float gb[NQ], hb[NQ];
     pos += barrier(m, p, x, gb, hb);
   }
   float v2 = 0.f;
+#pragma unroll
   for (int i = 0; i < NQ; ++i) v2 += x[NQ + i] * x[NQ + i];
   return qmod * pos + p.dQ * v2;
 }
 
 // Stage 4, item (knot k, alpha c): the candidate's merit cost and, for a
-// running knot, its Euler defect norms under the lane wrench.
+// running knot, its Euler defect norms under the lane wrench.  The joint
+// rotations are formed once, for the EE position, the wrench map and the
+// dynamics.
 template <bool Cl>
 DEV void line_search_item(const ModelConsts& m, const SolveParams& p,
                           const Smem& s, int k, int c) {
@@ -638,28 +666,33 @@ DEV void line_search_item(const ModelConsts& m, const SolveParams& p,
   const float alpha = ldexpf(1.f, -c);
   const float* goal = s.G + kl * kG;
   float xc[NX], cost, cv = 0.f;
+#pragma unroll
   for (int r = 0; r < NX; ++r) xc[r] = s.X[kl * kX + r] + alpha * s.dX[kl * kDX + r];
+  float R[NJ][3][3], Rw[3][3], pe[3];
+  unrolled::rotations(m, xc, R);
+  unrolled::fk_last(m, R, Rw, pe);
   if (k == Nm1) {
-    cost = merit_knot_cost(m, p, xc, goal, p.QN);
+    cost = merit_knot_cost(m, p, xc, pe, goal, p.QN);
   } else {
     const float dt = p.dt;
     const float* xk1 = knot_at<Cl>(s, s.X, kX, k + 1);
     const float* dxk1 = knot_at<Cl>(s, s.dX, kDX, k + 1);
-    float xnc[NX], uc[NU], u2 = 0.f;
-    for (int r = 0; r < NX; ++r) xnc[r] = xk1[r] + alpha * dxk1[r];
+    float uc[NU], u2 = 0.f;
+#pragma unroll
     for (int r = 0; r < NU; ++r) {
       uc[r] = s.U[kl * kU + r] + alpha * s.dU[kl * kDU + r];
       u2 += uc[r] * uc[r];
     }
-    cost = merit_knot_cost(m, p, xc, goal, 1.f) + p.R * u2;
+    cost = merit_knot_cost(m, p, xc, pe, goal, 1.f) + p.R * u2;
     float fl[3], nl[3], acc[NJ], L[6][6], invD[6];
-    if (p.use_wrench) world_wrench_to_ee(m, xc, s.w, fl, nl);
-    forward_dynamics(m, xc, xc + NQ, uc, p.use_wrench ? fl : nullptr,
-                     p.use_wrench ? nl : nullptr, acc, L, invD);
+    if (p.use_wrench) unrolled::wrench_to_ee(Rw, pe, s.w, fl, nl);
+    unrolled::forward_dynamics(m, R, xc + NQ, uc, p.use_wrench, fl, nl, acc, L, invD);
+    // The defect against the candidate's x_{k+1}, formed only now.
     float dq2 = 0.f, dv2 = 0.f;
+#pragma unroll
     for (int i = 0; i < NQ; ++i) {
-      const float eq = (xc[i] + dt * xc[NQ + i]) - xnc[i];
-      const float ev = (xc[NQ + i] + dt * acc[i]) - xnc[NQ + i];
+      const float eq = (xc[i] + dt * xc[NQ + i]) - (xk1[i] + alpha * dxk1[i]);
+      const float ev = (xc[NQ + i] + dt * acc[i]) - (xk1[NQ + i] + alpha * dxk1[NQ + i]);
       dq2 += eq * eq;
       dv2 += ev * ev;
     }
@@ -688,15 +721,20 @@ DEV float base_merit(const SolveParams& p, const Smem& s) {
   return (cost + bc_T) + p.merit_mu * cv;
 }
 
-// The masked update of the cluster kernel's segment: X += scale dX over
-// its nx floats, U += scale dU over its nu.  Kept out of line: inlined
-// into sqp_kernel<true>, ptxas at -O1 and above (CUDA 12.9, sm_90a)
-// emitted these two loops so that they wrote past the segment's U, into
-// its goals (found on the H100 by dumping the shared arrays after every
-// stage; right at -O0, out of line, or with the bounds made opaque).
-__device__ __noinline__ void update_segment(const Smem& s, float scale, int nx, int nu) {
-  for (int e = threadIdx.x; e < nx; e += blockDim.x) s.X[e] += scale * s.dX[e];
-  for (int e = threadIdx.x; e < nu; e += blockDim.x) s.U[e] += scale * s.dU[e];
+// The masked update of the block's segment: X += scale dX over its nx
+// floats, U += scale dU over its nu.  Kept out of line: inlined into
+// sqp_kernel<true>, ptxas at -O1 and above (CUDA 12.9, sm_90a) emitted
+// these two loops so that they wrote past the segment's U, into its goals
+// (found on the H100 by dumping the shared arrays after every stage; right
+// at -O0, out of line, or with the bounds made opaque).  Out of line, the
+// loops' trip counts are not held in registers across the SQP iterations
+// either, which spilled them in sqp_kernel<false>.  It takes the four
+// arrays, not the Smem: a reference would put the whole Smem in the
+// kernel's local memory.
+__device__ __noinline__ void update_segment(float* X, const float* dX, float* U,
+                                            const float* dU, float scale, int nx, int nu) {
+  for (int e = threadIdx.x; e < nx; e += blockDim.x) X[e] += scale * dX[e];
+  for (int e = threadIdx.x; e < nu; e += blockDim.x) U[e] += scale * dU[e];
 }
 
 template <bool Cl>
@@ -838,12 +876,7 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
     }
     __syncthreads();
     const float scale = s.st->scale;
-    if constexpr (Cl) {
-      update_segment(s, scale, (hi - lo) * kX, (hr - lo) * kU);
-    } else {
-      for (int e = tid; e < (hi - lo) * kX; e += nt) s.X[e] += scale * s.dX[e];
-      for (int e = tid; e < (hr - lo) * kU; e += nt) s.U[e] += scale * s.dU[e];
-    }
+    update_segment(s.X, s.dX, s.U, s.dU, scale, (hi - lo) * kX, (hr - lo) * kU);
     lane_sync<Cl>();
     stage_clock(s.st, clocks, kClkLineSearch);
   }

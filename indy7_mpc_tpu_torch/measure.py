@@ -755,6 +755,27 @@ def ptxas_lines(log, kernel):
     return out
 
 
+def ptxas_figures(lines):
+    """{entry's mangled name: (registers, stack frame bytes, spill store
+    bytes, spill load bytes)} from ptxas lines such as ``ptxas_lines``'."""
+    import re
+
+    out, name = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            out.setdefault(name, [0, 0, 0, 0])
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name is not None:
+            out[name][1:] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 # K2's three calls: (lanes, plant step run).  The device loop's call runs
 # at each B of K2_SWEEP too.
 K2_CALLS = {"device_loop": (64, True), "consensus": (64, False), "plant_step": (1, True)}

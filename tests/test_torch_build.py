@@ -272,3 +272,39 @@ def test_k2_work_counts_the_functions_work():
     assert k2_work(64, 5, True, True)[0] == 64 * lane + 12 + 801 + 5 * step + 12
     assert k2_work(64, 5, True, True)[1] == 4 * (2 * 195 + 30 + 13 * 64 + 17 + 6 + 30 + 12)
     assert k2_work(64, 5, True, True, saturate=True)[0] == k2_work(64, 5, True, True)[0] + 5 * 12
+
+
+def test_ptxas_figures_read_each_entry():
+    """measure.ptxas_figures reads registers, stack frame and spills per
+    entry from ptxas's -v lines, as measure.ptxas_lines keeps them."""
+    from indy7_mpc_tpu_torch import measure
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN5indy710sqp_kernelILb0EEEvv' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN5indy710sqp_kernelILb0EEEvv",
+        "    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 40 bytes cumulative stack size",
+        "ptxas info    : Function properties for _ZN5indy714update_segmentEv",
+        "    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function '_ZN5indy710sqp_kernelILb1EEEvv' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN5indy710sqp_kernelILb1EEEvv",
+        "    96 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 254 registers, used 1 barriers, 96 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_ZN5indy711tick_kernelILb1EEEvv' for 'sm_90a'",
+    ])
+    figures = measure.ptxas_figures(measure.ptxas_lines(log, "sqp_kernel"))
+    assert figures == {"_ZN5indy710sqp_kernelILb0EEEvv": (255, 40, 0, 0),
+                       "_ZN5indy710sqp_kernelILb1EEEvv": (254, 96, 4, 8)}
+
+
+def test_k1_items_run_the_unrolled_rigid_body_routines():
+    """K1's rigid-body items call the routines of rbd_unrolled.cuh, none of
+    rbd.cuh's looped ones, and every loop there is unrolled, so that their
+    per-link arrays and the model constants need no local memory."""
+    k1 = (_build.CSRC_DIR / "sqp_kernel.cu").read_text()
+    looped = r"(?<!unrolled::)\b(rnea|crba|forward_dynamics|world_wrench_to_ee|fk_last|ee_pos\w*)\("
+    assert re.findall(looped, k1) == []
+    assert '#include "rbd_unrolled.cuh"' in k1
+    src = (_build.CSRC_DIR / "rbd_unrolled.cuh").read_text().splitlines()
+    loops = [i for i, line in enumerate(src) if re.match(r"\s*for \(", line)]
+    assert loops and all(src[i - 1].strip() == "#pragma unroll" for i in loops)

@@ -66,19 +66,31 @@ def _f32(a, device):
     return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
 
 
-@pytest.mark.parametrize("case", ["wrench", "no_wrench", "barrier"])
-def test_sqp_kernel_matches_plain(cuda, case):
+# The benchmark's K1 shapes (lanes, horizon): mpcbench's fig8_b256_n32 and
+# fig8_b64_n64, each solved with 2 SQP iterations, 8 alphas and the wrench.
+BENCH_SHAPES = {"b256_n32": (256, 32), "b64_n64": (64, 64)}
+
+
+@pytest.mark.parametrize("case,lanes,horizon", [
+    pytest.param("wrench", B, N, id="wrench"),
+    pytest.param("no_wrench", B, N, id="no_wrench"),
+    pytest.param("barrier", B, N, id="barrier"),
+    *(pytest.param("wrench", *shape, id=f"wrench_{name}") for name, shape in BENCH_SHAPES.items()),
+])
+def test_sqp_kernel_matches_plain(cuda, case, lanes, horizon):
+    """K1 against the plain version, with and without the wrench, in the
+    joint-range barrier, and at the benchmark's shapes."""
     rng = np.random.default_rng(11)
     sm = LR.static_model(indy7(torch.float32, cuda))
-    w = rng.normal(size=(6, B)) * 8
+    w = rng.normal(size=(6, lanes)) * 8
     w[3:] = 0.0
     xs, goals, X, U = (
         rng.normal(size=shape) * scale
-        for shape, scale in (((12, B), 0.05), ((N, 3, B), 0.3), ((N, 12, B), 0.05),
-                             ((N - 1, 6, B), 0.5))
+        for shape, scale in (((12, lanes), 0.05), ((horizon, 3, lanes), 0.3),
+                             ((horizon, 12, lanes), 0.05), ((horizon - 1, 6, lanes), 0.5))
     )
     if case == "barrier":  # joint 1 in or past its joint-range barrier band
-        X[:, 1] += 2.95 + 0.05 * np.arange(B)
+        X[:, 1] += 2.95 + 0.05 * np.arange(lanes)
         xs = X[0].copy()
     args = [_f32(a, cuda) for a in (xs, goals, X, U)]
     kw = dict(wrench=None if case == "no_wrench" else _f32(w, cuda))
@@ -127,15 +139,21 @@ def _k1_outputs_match(k, p):
         np.testing.assert_allclose((a / scale).cpu().numpy(), (b / scale).cpu().numpy(), atol=6e-3)
 
 
-@pytest.mark.parametrize("variant", [{"threads": 32}, {"threads": 128}])
-def test_sqp_kernel_same_bits_at_any_block_size(cuda, variant):
+@pytest.mark.parametrize("lanes,horizon,variant", [
+    pytest.param(16, 24, {"threads": 32}, id="threads32"),
+    pytest.param(16, 24, {"threads": 128}, id="threads128"),
+    *(pytest.param(*shape, {"threads": t}, id=f"{name}_threads{t}")
+      for name, shape in BENCH_SHAPES.items() for t in (64, 128)),
+])
+def test_sqp_kernel_same_bits_at_any_block_size(cuda, lanes, horizon, variant):
     """Every cooperative loop of K1 strides by the block size between
     barriers and every sum is taken by one thread in a fixed order, so X,
-    U, rho, alphas and steps are the same bits at the default block size,
-    on a second launch of the same inputs, and at ``variant`` (32 or 128
-    threads): a race check that needs no sanitizer."""
+    U, rho, alphas and steps are the same bits at the default block size
+    (256 threads), on a second launch of the same inputs, and at
+    ``variant`` (32, 64 or 128 threads), also at the benchmark's shapes:
+    a race check that needs no sanitizer."""
     sm = LR.static_model(indy7(torch.float32, cuda))
-    args, kw = _k1_inputs(cuda, 16, 24)
+    args, kw = _k1_inputs(cuda, lanes, horizon)
     first = sqp_solve(sm, COST, SQP, DT, *args, **kw)
     again = sqp_solve(sm, COST, SQP, DT, *args, **kw)
     other = sqp_solve(sm, COST, SQP, DT, *args, **kw, **variant)
@@ -210,13 +228,15 @@ def test_sqp_kernel_past_one_block_matches_plain(cuda, horizon, lanes):
     _k1_against_plain(sm, SQP, *_k1_inputs(cuda, lanes, horizon))
 
 
+@pytest.mark.parametrize("lanes,horizon", [(16, 96), *BENCH_SHAPES.values()])
 @pytest.mark.parametrize("cluster", [2, 4])
-def test_sqp_kernel_same_bits_at_any_cluster_size(cuda, cluster):
+def test_sqp_kernel_same_bits_at_any_cluster_size(cuda, cluster, lanes, horizon):
     """Every sum over knots is taken by one thread in knot order, over the
-    cluster's shared memory, so N=96 in one block and in clusters of 2 and
-    4 blocks (the ``cluster=`` override) gives the same bits."""
+    cluster's shared memory, so N=96 (and the benchmark's shapes) in one
+    block and in clusters of 2 and 4 blocks (the ``cluster=`` override)
+    gives the same bits."""
     sm = LR.static_model(indy7(torch.float32, cuda))
-    args, kw = _k1_inputs(cuda, 16, 96)
+    args, kw = _k1_inputs(cuda, lanes, horizon)
     one = sqp_solve(sm, COST, SQP, DT, *args, **kw, cluster=1)
     before = sqp_solve.launches
     many = sqp_solve(sm, COST, SQP, DT, *args, **kw, cluster=cluster)
@@ -236,6 +256,36 @@ def test_sqp_kernel_more_alphas_match_plain(cuda, num_alphas):
     sqp = dataclasses.replace(SQP, num_alphas=num_alphas)
     for horizon in (96, 256):
         _k1_against_plain(sm, sqp, *_k1_inputs(cuda, 16, horizon))
+
+
+# ptxas's figures for K2's entries (registers, stack frame, spill store and
+# load bytes; nvcc 12.9, -O3, sm_90a): K1's rigid-body routines are its
+# own (csrc/rbd_unrolled.cuh), so K2 compiles as it did before them.
+K2_PTXAS = {"tick_kernelILb1": (64, 2880, 6348, 14180), "tick_kernelILb0": (85, 32, 0, 0)}
+
+
+def test_sqp_kernel_has_no_local_memory_frame(cuda):
+    """K1's rigid-body items index every per-link array by compile-time
+    constants, so neither K1 entry keeps more than 256 bytes of stack frame
+    (sincosf's slow path, the rollout's du and a few words of loop state,
+    against 1,824 and 2,096 bytes with rbd.cuh's looped routines).  What
+    ptxas still spills is loop state outside the rigid-body code: at most
+    16 bytes in the one-block kernel, 64 in the cluster kernel (88 before).
+    K2's entries keep their figures."""
+    from indy7_mpc_tpu_torch import measure
+    from indy7_mpc_tpu_torch.ops.kernels import _build
+
+    _build.load_library()
+    log = _build.build_log()
+    k1 = measure.ptxas_figures(measure.ptxas_lines(log, "sqp_kernel"))
+    entries = {key: [f for n, f in k1.items() if key in n] for key in ("ILb0", "ILb1")}
+    assert all(len(f) == 1 for f in entries.values()), k1
+    (one,), (cluster,) = entries["ILb0"], entries["ILb1"]
+    assert one[1] <= 256 and cluster[1] <= 256, k1
+    assert one[2] <= 16 and cluster[2] <= 64, k1
+    k2 = measure.ptxas_figures(measure.ptxas_lines(log, "tick_kernel"))
+    assert {key: [f for n, f in k2.items() if key in n] for key in K2_PTXAS} == {
+        key: [f] for key, f in K2_PTXAS.items()}
 
 
 TICK_CASES = {

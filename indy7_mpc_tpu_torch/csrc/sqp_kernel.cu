@@ -66,7 +66,11 @@
 // accumulator of kClockSlots counters.  Thread 0 of each block reads the
 // word once; when it is set, that thread reads clock64() after the barrier
 // that closes each stage and adds the stage's cycles at once (one
-// timestamp, kept in the lane state).  Off, they cost one load a block.
+// timestamp, kept in the lane state).  In the cluster kernel the same
+// thread also reads clock64() on both sides of each segment's cluster
+// barrier in stages 2 and 3 and adds the cycles between to the hand-off
+// slot: the block's wait for the other blocks' segments, a part of the
+// riccati and rollout slots (0 at C = 1).  Off, they cost one load a block.
 // Either way the outputs are the same bits.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -135,10 +139,12 @@ static_assert(kFixedFloats ==
 // The slots of the stage clocks' accumulator (tracing.K1_SLOTS): the
 // cycles of the prologue's load, of stages 1-4 over every iteration, of
 // the epilogue's store and of the whole block, each summed over the
-// blocks, and the number of blocks timed.
+// blocks, the number of blocks timed, and the cycles the blocks waited at
+// the segment hand-offs of stages 2 and 3 (cluster kernel only).
 constexpr int kClkPrologue = 0, kClkLinearize = 1, kClkRiccati = 2, kClkRollout = 3;
 constexpr int kClkLineSearch = 4, kClkEpilogue = 5, kClkTotal = 6, kClkBlocks = 7;
-constexpr int kClockSlots = 8;
+constexpr int kClkHandoff = 8;
+constexpr int kClockSlots = 9;
 
 // The alpha slots, the work floats a knot, and the floats a knot and of
 // the fixed region, for num_alphas alphas.
@@ -251,6 +257,17 @@ DEV void stage_clock(LaneState* st, unsigned long long* clocks, int slot) {
     atomicAdd(clocks + slot, t - st->t_stage);
     st->t_stage = t;
   }
+}
+
+// The cluster barrier after a segment of stage 2 or 3.  With the stage
+// clocks on, thread 0 adds the cycles it waited there for the other
+// blocks to kClkHandoff at once: a sum kept in the lane state, which is
+// full, would move every shared array of the one-block kernel too.
+DEV void segment_handoff(const LaneState* st, unsigned long long* clocks) {
+  const bool timed = threadIdx.x == 0 && st->clocks;
+  const unsigned long long t = timed ? clock64() : 0ULL;
+  cg::this_cluster().sync();
+  if (timed) atomicAdd(clocks + kClkHandoff, clock64() - t);
 }
 
 // A barrier over the lane's blocks: the cluster's, or the block's.
@@ -571,10 +588,10 @@ DEV void sweep_segment(const SolveParams& p, const Smem& s) {
 // Stage 2: the sweep over the lane's segments, last to first, each block
 // in its turn (a cluster barrier after each).
 template <bool Cl>
-DEV void backward_sweep(const SolveParams& p, const Smem& s) {
+DEV void backward_sweep(const SolveParams& p, const Smem& s, unsigned long long* clocks) {
   for (int r = s.nblk - 1; r >= 0; --r) {
     if (r == s.rank) sweep_segment<Cl>(p, s);
-    if constexpr (Cl) cg::this_cluster().sync();
+    if constexpr (Cl) segment_handoff(s.st, clocks);
   }
 }
 
@@ -631,10 +648,10 @@ DEV void rollout_segment(const SolveParams& p, const Smem& s) {
 // Stage 3: the rollout over the lane's segments, first to last, each block
 // in its turn (a cluster barrier after each).
 template <bool Cl>
-DEV void forward_rollout(const SolveParams& p, const Smem& s) {
+DEV void forward_rollout(const SolveParams& p, const Smem& s, unsigned long long* clocks) {
   for (int r = 0; r < s.nblk; ++r) {
     if (r == s.rank) rollout_segment<Cl>(p, s);
-    if constexpr (Cl) cg::this_cluster().sync();
+    if constexpr (Cl) segment_handoff(s.st, clocks);
   }
 }
 
@@ -808,10 +825,10 @@ sqp_kernel(ModelConsts m, SolveParams p, const float* __restrict__ xs,
     if (p.stages >= 2) {
       // ---- Stage 2: Riccati sweep; stage 3: rollout (each ends on a
       // barrier) ----
-      backward_sweep<Cl>(p, s);
+      backward_sweep<Cl>(p, s, clocks);
       stage_clock(s.st, clocks, kClkRiccati);
       if (p.stages >= 3) {
-        forward_rollout<Cl>(p, s);
+        forward_rollout<Cl>(p, s, clocks);
         stage_clock(s.st, clocks, kClkRollout);
       }
     }

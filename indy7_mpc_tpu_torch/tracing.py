@@ -27,7 +27,11 @@ Off by default; :func:`enable` switches it on and off for the process.
   :func:`enable` switches the counting in graphs captured before it.  When
   the word is set, thread 0 of each block reads ``clock64()`` at the
   barriers that close K1's stages (:data:`K1_SLOTS`) and adds each
-  stage's cycles; :func:`k1_stage_cycles` reads and zeroes the sums.
+  stage's cycles; in the cluster kernel (past 174 knots) it also adds
+  the cycles its block waits at the segment hand-offs of the Riccati
+  sweep and the rollout (``handoff``, a part of ``riccati`` plus
+  ``rollout``; 0 with one block a lane).  :func:`k1_stage_cycles` reads
+  and zeroes the sums.
 """
 from __future__ import annotations
 
@@ -46,9 +50,10 @@ MAX_RECORDS = 1 << 16
 # the prologue's load, of stage 1 (linearize), 2 (the Riccati sweep), 3
 # (the rollout), 4 (the line search and the update) over every SQP
 # iteration, of the epilogue's store, of the whole block, each summed over
-# the blocks timed, and the number of blocks timed.
+# the blocks timed, the number of blocks timed, and the cycles the blocks
+# waited at the cluster barriers between segments in stages 2 and 3.
 K1_STAGES = ("prologue", "linearize", "riccati", "rollout", "linesearch", "epilogue")
-K1_SLOTS = K1_STAGES + ("total", "blocks")
+K1_SLOTS = K1_STAGES + ("total", "blocks", "handoff")
 
 # Cumulative counts this module keeps; the other counters are read where
 # they are kept (see counters()).

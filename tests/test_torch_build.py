@@ -142,6 +142,18 @@ def test_sqp_shared_memory_layout_mirrors_the_source():
         const("kAlphaSlots"), const("kWork"), const("kMaxCluster"))
 
 
+def test_sqp_clock_slots_end_with_the_handoff():
+    """K1's stage-clock accumulator holds ``len(tracing.K1_SLOTS)`` slots,
+    and the segment hand-off is the last of them (``kClkHandoff``), so the
+    slots before it keep their indices."""
+    from indy7_mpc_tpu_torch import tracing
+
+    text = (_build.CSRC_DIR / "sqp_kernel.cu").read_text()
+    const = lambda name: int(re.search(r"\b%s = (\d+);" % name, text).group(1))
+    assert const("kClockSlots") == len(tracing.K1_SLOTS) == 9
+    assert tracing.K1_SLOTS[-1] == "handoff" and const("kClkHandoff") == const("kClockSlots") - 1
+
+
 def test_sqp_horizon_limit():
     """One block holds up to 174 knots (N=64 in 86,960 bytes); past that a
     lane takes the smallest cluster whose blocks' segments fit, up to the

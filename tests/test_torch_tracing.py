@@ -164,7 +164,7 @@ def test_k1_clock_slots_mirror_the_source():
         tracing.K1_SLOTS)
     names = {"Prologue": "prologue", "Linearize": "linearize", "Riccati": "riccati",
              "Rollout": "rollout", "LineSearch": "linesearch", "Epilogue": "epilogue",
-             "Total": "total", "Blocks": "blocks"}
+             "Total": "total", "Blocks": "blocks", "Handoff": "handoff"}
     assert {names[k[len("kClk"):]]: v for k, v in slots.items()} == {
         s: i for i, s in enumerate(tracing.K1_SLOTS)}
 
@@ -220,6 +220,45 @@ def test_k1_same_bits_with_stage_clocks(cuda, traced, lanes, horizon):
     assert sum(cycles[s] for s in tracing.K1_STAGES) <= cycles["total"]
     assert cycles["blocks"] == lanes * K1.cluster_size(horizon)
     assert tracing.k1_stage_cycles(cuda) == dict.fromkeys(tracing.K1_SLOTS, 0)  # zeroed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,horizon", [(64, 64), (64, 256)])
+def test_k1_handoff_clock_counts_the_cluster_wait(cuda, traced, lanes, horizon):
+    """The ``handoff`` slot counts the blocks' wait at the cluster barriers
+    between segments of the Riccati sweep and the rollout: at N=256 (C=2)
+    more than 0 and less than those two stages together; at N=64 (C=1,
+    no cluster) 0."""
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
+
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    args, w = _k1_inputs(cuda, lanes, horizon)
+    K1.sqp_solve(sm, COST, SQP, DT, *args, wrench=w)
+    tracing.k1_stage_cycles(cuda)
+    K1.sqp_solve(sm, COST, SQP, DT, *args, wrench=w)
+    cycles = tracing.k1_stage_cycles(cuda)
+    assert cycles["blocks"] == lanes * K1.cluster_size(horizon)
+    if K1.cluster_size(horizon) == 1:
+        assert cycles["handoff"] == 0, cycles
+    else:
+        assert 0 < cycles["handoff"] < cycles["riccati"] + cycles["rollout"], cycles
+
+
+# ptxas's figures of the one-block K1 entry (registers, stack frame, spill
+# stores, spill loads): the hand-off clock lives in the cluster kernel only.
+K1_PLAIN_PTXAS = (255, 64, 12, 16)
+
+
+@pytest.mark.gpu
+def test_one_block_k1_ptxas_line_is_unchanged(cuda):
+    """``sqp_kernel<false>`` compiles as it did before the cluster kernel's
+    hand-off clock: the same registers, stack frame and spills."""
+    from indy7_mpc_tpu_torch import measure
+
+    _build.load_library()
+    k1 = measure.ptxas_figures(measure.ptxas_lines(_build.build_log(), "sqp_kernel"))
+    assert [f for n, f in k1.items() if "ILb0" in n] == [K1_PLAIN_PTXAS], k1
 
 
 @pytest.mark.gpu

@@ -28,9 +28,12 @@
 // scattered back at the end.  The threads of the block stride over each
 // stage's independent work, in the structure of the TPU kernel: stage 1
 // over knots and then over (knot, tangent) pairs, stage 2 over the entries
-// of each knot's products (4 barriers a knot: S is re-symmetrized where it
-// is read, and each of the 13 Quu solves factors Quu itself), stage 3 over
-// the state rows (1 barrier a knot), stage 4 over (knot, alpha) pairs.
+// of each knot's products in three passes a knot (3 barriers: Quu is formed
+// from S beside SA, SB and Sc, and factored once by one thread while the
+// others form Qxx, Qxu, qx and qu; the threads that form S' solve the K
+// columns they need from that factor and store S' symmetrized; each kind
+// of entry starts on a warp boundary), stage 3 over the state rows (1
+// barrier a knot), stage 4 over (knot, alpha) pairs.
 // Every cooperative loop is `for (i = tid; i < n; i += nthreads)` between
 // barriers, and every sum is taken by one thread in a fixed order, so the
 // result is the same bits for any block size.  No tensor cores: the
@@ -129,8 +132,8 @@ struct LaneState {
 };
 constexpr int kState = 8;
 static_assert(sizeof(LaneState) == 4 * kState, "kState");
-// Fixed region: the lane state, S (stored before its symmetrization), SA,
-// SB, Qxx, Qxu, Quu, s, Sc, qx, qu, the per-alpha merits and the wrench.
+// Fixed region: the lane state, S (symmetric), SA, SB, Qxx, Qxu, Quu (then
+// its LDL^T factor), s, Sc, qx, qu, the per-alpha merits and the wrench.
 constexpr int kFixedFloats = 684;
 static_assert(kFixedFloats ==
                   kState + 144 * 3 + 72 * 2 + 36 + 12 * 3 + 6 + kAlphaSlots + 6,
@@ -444,12 +447,6 @@ DEV float q_entry(const float* J, const float* sc, float qmod, int i, int j) {
   return (i == j && i >= NQ) ? sc[0] : 0.f;
 }
 
-// Entry (i, j) of S = 0.5 (S' + S'^T), the re-symmetrized S, from the last
-// knot's S'; the terminal S (`raw`) is read as it is stored.
-DEV float sym(const float* S, bool raw, int i, int j) {
-  return (raw || i == j) ? S[i * NX + j] : 0.5f * (S[i * NX + j] + S[j * NX + i]);
-}
-
 // Row i of A^T c for A = I + [0 dt I; dt*da], c a 12-vector with stride cs.
 DEV float At_row(const float* dtda, float dt, const float* c, int cs, int i) {
   float o = c[i * cs] + (i >= NQ ? dt * c[(i - NQ) * cs] : 0.f);
@@ -457,9 +454,53 @@ DEV float At_row(const float* dtda, float dt, const float* c, int cs, int i) {
   return o;
 }
 
+// Pair p of the n (n + 1) / 2 pairs i <= j of an n x n symmetric matrix, n
+// even: row r of the folded (n / 2) x (n + 1) table holds (r, r..n-1) and
+// then (n-1-r, n-1-r..n-1).
+template <int n>
+DEV void sym_pair(int p, int& i, int& j) {
+  const int r = p / (n + 1), c = p - r * (n + 1);
+  const bool first = c < n - r;
+  i = first ? r : n - 1 - r;
+  j = first ? r + c : c - 1;
+}
+
+// The three passes of a running knot step, at kMaxThreads threads: each
+// kind of entry starts on a warp boundary, the longest chains first.  A
+// thread's slot v in a pass is its index in that padded space; with fewer
+// threads the block strides over the slots (the holes do nothing), so each
+// entry is still formed by one thread with the same operations.
+//   A: Quu (21, lower triangle, from S and W), Sc (12), SA by column pairs
+//      (j, j + 6) (72), SB (72);
+//   B: the LDL^T factor of Quu (thread kBFactor, whose warp has no other
+//      slot), Qxx by column pairs (j, j + 6) (72), Qxu by column pairs
+//      (j, j + 3) (36), qx (12), qu (6);
+//   C: S' by symmetric pairs (78), s (12).
+constexpr int kAQuu = 0, kASc = 32, kASA = 64, kASB = 160, kAEnd = 232;
+constexpr int kBFactor = 0, kBQxx = 32, kBQxu = 128, kBqx = 192, kBqu = 224, kBEnd = 230;
+constexpr int kCS = 0, kCs = 96, kCEnd = 108;
+
+// Quu = L D L^T in place: L below the diagonal, 1/D on it.  Kept out of
+// line: inlined into the sweep, its six divisions' calls to the slow path
+// of the IEEE reciprocal came with the sweep's pointers live, and ptxas
+// spilled more of stage 1 (sqp_kernel<true>: 136 bytes of stack and 80 of
+// spill stores, against 112 and 56 out of line).
+__device__ __noinline__ void factor_quu(float* F) {
+  float M[6][6], L[6][6], invD[6];
+  for (int i = 0; i < NU; ++i)
+    for (int j = 0; j <= i; ++j) M[i][j] = F[i * NU + j];
+  ldl6(M, L, invD);
+  for (int i = 0; i < NU; ++i) {
+    for (int j = 0; j < i; ++j) F[i * NU + j] = L[i][j];
+    F[i * NU + i] = invD[i];
+  }
+}
+
 // Stage 2 on the block's segment: the Riccati backward sweep over its
 // running knots, from the terminal knot's S and s or from those the next
-// block's segment left; stores K and kff per knot.
+// block's segment left; stores K and kff per knot.  S is kept symmetric
+// where it is written (the terminal S as the cost builds it), so every
+// reader loads it as stored.
 template <bool Cl>
 DEV void sweep_segment(const SolveParams& p, const Smem& s) {
   const int N = p.N, Nm1 = N - 1, tid = threadIdx.x, nt = blockDim.x;
@@ -486,99 +527,139 @@ DEV void sweep_segment(const SolveParams& p, const Smem& s) {
     }
   }
   __syncthreads();
+  const float* S = s.S;
   for (int k = min(s.hi, Nm1) - 1; k >= s.lo; --k) {
     const int kl = k - s.lo;
     const float* dtda = s.da + kl * kDa;  // row u*12+j = dt * da[u][j]
     const float* W = s.minv + kl * kMinv;  // row u*6+j = dt * Minv[u][j]
-    const float* S = s.S;
-    const bool raw = k == Nm1 - 1;
-    // SA = S A (144), SB = S B with B = [0; dt M^-1] (72), Sc = S d + s (12).
-    for (int e = tid; e < 228; e += nt) {
-      if (e < 144) {
-        const int r = e / NX, j = e % NX;
-        float c = sym(S, raw, r, j);
-        if (j >= NQ) c = c + dt * sym(S, raw, r, j - NQ);
-        for (int u = 0; u < NQ; ++u) c += sym(S, raw, r, NQ + u) * dtda[u * NX + j];
-        s.SA[e] = c;
-      } else if (e < 216) {
-        const int r = (e - 144) / NU, j = (e - 144) % NU;
-        float c = 0.f;
-        for (int u = 0; u < NQ; ++u) c += sym(S, raw, r, NQ + u) * W[u * NU + j];
-        s.SB[e - 144] = c;
-      } else {
-        const int i = e - 216;
-        const float* d = s.d + kl * kD;
-        float acc = 0.f;
-        for (int j = 0; j < NX; ++j) acc += sym(S, raw, i, j) * d[j];
-        s.Sc[i] = acc + s.sv[i];
-      }
-    }
-    __syncthreads();
-    // Qxx = A^T SA + Q (144), Qxu = A^T SB (72), Quu = B^T SB + (2R + rho) I
-    // (lower triangle, 21), qx = A^T Sc (12), qu = B^T Sc + 2R u (6).
-    {
-      const float* J = s.J + kl * kJ;
-      const float* sc = s.sc + kl * kSc;
-      const float twoR = sc[1];
-      for (int e = tid; e < 255; e += nt) {
-        if (e < 144) {
-          const int i = e / NX, j = e % NX;
-          s.Qxx[e] = At_row(dtda, dt, s.SA + j, NX, i) + q_entry(J, sc, 1.f, i, j);
-        } else if (e < 216) {
-          const int i = (e - 144) / NU, j = (e - 144) % NU;
-          s.Qxu[e - 144] = At_row(dtda, dt, s.SB + j, NU, i);
-        } else if (e < 237) {
-          int i = 0, r = e - 216;
-          while (r > i) r -= ++i;  // (i, j = r), j <= i, row-major lower
-          const int j = r;
-          float v = 0.f;
-          for (int t = 0; t < NQ; ++t) v += W[t * NU + i] * s.SB[(NQ + t) * NU + j];
-          s.Quu[i * NU + j] = i == j ? v + (twoR + rho) : v;
-        } else if (e < 249) {
-          const int i = e - 237;
-          s.qx[i] = At_row(dtda, dt, s.Sc, 1, i);
-        } else {
-          const int t = e - 249;
+    const float* J = s.J + kl * kJ;
+    const float* sc = s.sc + kl * kSc;
+    const float twoR = sc[1];
+    // Pass A: Quu = B^T S B + (2R + rho) I with B = [0; dt M^-1], its SB
+    // rows recomputed; Sc = S d + s; SA = S A with A = I + [0 dt I; dt*da];
+    // SB = S B.
+    for (int v = tid; v < kAEnd; v += nt) {
+      if (v < kASc) {
+        if (v - kAQuu < 21) {
+          int j, i;  // i >= j
+          sym_pair<NU>(v - kAQuu, j, i);
+          float sb[NQ];
+          for (int t = 0; t < NQ; ++t) {
+            float c = 0.f;
+            for (int u = 0; u < NQ; ++u) c += S[(NQ + t) * NX + NQ + u] * W[u * NU + j];
+            sb[t] = c;
+          }
+          float q = 0.f;
+          for (int t = 0; t < NQ; ++t) q += W[t * NU + i] * sb[t];
+          s.Quu[i * NU + j] = i == j ? q + (twoR + rho) : q;
+        }
+      } else if (v < kASA) {
+        const int i = v - kASc;
+        if (i < NX) {
+          const float* d = s.d + kl * kD;
           float acc = 0.f;
-          for (int u = 0; u < NQ; ++u) acc += W[u * NU + t] * s.Sc[NQ + u];
-          s.qu[t] = acc + twoR * s.U[kl * kU + t];
+          for (int j = 0; j < NX; ++j) acc += S[i * NX + j] * d[j];
+          s.Sc[i] = acc + s.sv[i];
         }
+      } else if (v < kASB) {
+        const int e = v - kASA;
+        if (e < 72) {
+          const int r = e / NU, j = e % NU;
+          const float* Sr = S + r * NX;
+          float c0 = Sr[j], c1 = Sr[NQ + j];
+          c1 = c1 + dt * Sr[j];
+          for (int u = 0; u < NQ; ++u) {
+            c0 += Sr[NQ + u] * dtda[u * NX + j];
+            c1 += Sr[NQ + u] * dtda[u * NX + NQ + j];
+          }
+          s.SA[r * NX + j] = c0;
+          s.SA[r * NX + NQ + j] = c1;
+        }
+      } else {
+        const int e = v - kASB, r = e / NU, j = e % NU;
+        float c = 0.f;
+        for (int u = 0; u < NQ; ++u) c += S[r * NX + NQ + u] * W[u * NU + j];
+        s.SB[e] = c;
       }
     }
     __syncthreads();
-    // K = -Quu^-1 Qxu^T (12 columns), kff = -Quu^-1 qu: each of the 13
-    // solves factors Quu itself (the same bits in every thread).
-    for (int e = tid; e < NX + 1; e += nt) {
-      float M[6][6], L[6][6], invD[6], rhs[NU], sol[NU];
-      for (int i = 0; i < NU; ++i)
-        for (int j = 0; j <= i; ++j) M[i][j] = s.Quu[i * NU + j];
-      ldl6(M, L, invD);
-      for (int t = 0; t < NU; ++t) rhs[t] = e < NX ? s.Qxu[e * NU + t] : s.qu[t];
-      ldl6_solve(L, invD, rhs, sol);
-      if (e < NX)
-        for (int t = 0; t < NU; ++t) s.K[kl * kK + t * NX + e] = -sol[t];
-      else
-        for (int t = 0; t < NU; ++t) s.kff[kl * kKff + t] = -sol[t];
-    }
-    __syncthreads();
-    // S' = Qxx + Qxu K (144), symmetrized where the next knot reads it;
-    // s = qx + q + Qxu kff (12).
-    {
-      const float* K = s.K + kl * kK;
-      const float* kff = s.kff + kl * kKff;
-      const float* qv = s.qv + kl * kQv;
-      for (int e = tid; e < 144 + NX; e += nt) {
-        if (e < 144) {
-          const int i = e / NX, j = e % NX;
-          float acc = s.Qxx[e];
-          for (int t = 0; t < NU; ++t) acc += s.Qxu[i * NU + t] * K[t * NX + j];
-          s.S[e] = acc;
-        } else {
-          const int i = e - 144;
-          float acc = s.qx[i] + qv[i];
-          for (int t = 0; t < NU; ++t) acc += s.Qxu[i * NU + t] * kff[t];
-          s.sv[i] = acc;
+    // Pass B: the others form Qxx = A^T SA + Q, Qxu = A^T SB, qx = A^T Sc
+    // and qu = B^T Sc + 2R u while one thread factors Quu.
+    for (int v = tid; v < kBEnd; v += nt) {
+      if (v < kBQxx) continue;  // the factor's warp
+      if (v < kBQxu) {
+        const int e = v - kBQxx;
+        if (e < 72) {
+          const int i = e / NU, j = e % NU;
+          s.Qxx[i * NX + j] = At_row(dtda, dt, s.SA + j, NX, i) + q_entry(J, sc, 1.f, i, j);
+          s.Qxx[i * NX + NQ + j] =
+              At_row(dtda, dt, s.SA + NQ + j, NX, i) + q_entry(J, sc, 1.f, i, NQ + j);
         }
+      } else if (v < kBqx) {
+        const int e = v - kBQxu;
+        if (e < 36) {
+          const int i = e / 3, j = e % 3;
+          s.Qxu[i * NU + j] = At_row(dtda, dt, s.SB + j, NU, i);
+          s.Qxu[i * NU + 3 + j] = At_row(dtda, dt, s.SB + 3 + j, NU, i);
+        }
+      } else if (v < kBqu) {
+        const int i = v - kBqx;
+        if (i < NX) s.qx[i] = At_row(dtda, dt, s.Sc, 1, i);
+      } else {
+        const int t = v - kBqu;
+        float acc = 0.f;
+        for (int u = 0; u < NQ; ++u) acc += W[u * NU + t] * s.Sc[NQ + u];
+        s.qu[t] = acc + twoR * s.U[kl * kU + t];
+      }
+    }
+    if (tid == kBFactor) factor_quu(s.Quu);
+    __syncthreads();
+    // Pass C: K = -Quu^-1 Qxu^T and kff = -Quu^-1 qu from the factor, each
+    // thread solving the columns it needs; S' = Qxx + Qxu K stored
+    // symmetrized, 0.5 (S' + S'^T), by the thread that forms both entries of
+    // a pair; s = qx + q + Qxu kff.
+    for (int v = tid; v < kCEnd; v += nt) {
+      float L[6][6], invD[6];
+      for (int i = 0; i < NU; ++i) {
+        for (int j = 0; j < i; ++j) L[i][j] = s.Quu[i * NU + j];
+        invD[i] = s.Quu[i * NU + i];
+      }
+      if (v < kCs) {
+        if (v - kCS < 78) {
+          int i, j;  // i <= j
+          sym_pair<NX>(v - kCS, i, j);
+          float qi[NU], qj[NU], ki[NU], kj[NU];
+          for (int t = 0; t < NU; ++t) {
+            qi[t] = s.Qxu[i * NU + t];
+            qj[t] = s.Qxu[j * NU + t];
+          }
+          ldl6_solve(L, invD, qj, kj);
+          ldl6_solve(L, invD, qi, ki);
+          float a = s.Qxx[i * NX + j], b = s.Qxx[j * NX + i];
+          for (int t = 0; t < NU; ++t) {
+            a += qi[t] * -kj[t];
+            b += qj[t] * -ki[t];
+          }
+          if (i == j) {
+            s.S[i * NX + i] = a;
+            for (int t = 0; t < NU; ++t) s.K[kl * kK + t * NX + j] = -kj[t];
+          } else {
+            const float m = 0.5f * (a + b);
+            s.S[i * NX + j] = m;
+            s.S[j * NX + i] = m;
+          }
+        }
+      } else {
+        const int i = v - kCs;
+        const float* qv = s.qv + kl * kQv;
+        float qu[NU], kff[NU];
+        for (int t = 0; t < NU; ++t) qu[t] = s.qu[t];
+        ldl6_solve(L, invD, qu, kff);
+        float acc = s.qx[i] + qv[i];
+        for (int t = 0; t < NU; ++t) acc += s.Qxu[i * NU + t] * -kff[t];
+        s.sv[i] = acc;
+        if (i == 0)
+          for (int t = 0; t < NU; ++t) s.kff[kl * kKff + t] = -kff[t];
       }
     }
     __syncthreads();

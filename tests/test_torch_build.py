@@ -154,6 +154,49 @@ def test_sqp_clock_slots_end_with_the_handoff():
     assert tracing.K1_SLOTS[-1] == "handoff" and const("kClkHandoff") == const("kClockSlots") - 1
 
 
+def _knot_loop(text):
+    """The body of sweep_segment's loop over the running knots."""
+    body = text[text.index("DEV void sweep_segment("):]
+    body = body[:body.index("\n}\n")]
+    return body[body.index("for (int k = min(s.hi, Nm1) - 1; k >= s.lo; --k) {"):]
+
+
+def test_sqp_riccati_knot_step_has_three_barriers_and_one_factor():
+    """A running knot of K1's Riccati sweep takes three block barriers, and
+    Quu is factored once a knot (one call of factor_quu, its one ldl6), the
+    solves reading that factor; S is read as stored (no re-symmetrizing
+    reader)."""
+    text = (_build.CSRC_DIR / "sqp_kernel.cu").read_text()
+    loop = _knot_loop(text)
+    assert loop.count("__syncthreads();") == 3
+    assert loop.count("factor_quu(") == 1 and not re.findall(r"\bldl6\(", loop)
+    factor = text[text.index("void factor_quu("):]
+    assert len(re.findall(r"\bldl6\(", factor[:factor.index("\n}\n")])) == 1
+    assert len(re.findall(r"\bldl6_solve\(", loop)) >= 1
+    assert "sym(" not in text
+
+
+# Entries of each kind in the knot step's passes A, B and C (their order).
+KNOT_PASSES = {"A": {"Quu": 21, "Sc": 12, "SA": 72, "SB": 72},
+               "B": {"Factor": 1, "Qxx": 72, "Qxu": 36, "qx": 12, "qu": 6},
+               "C": {"S": 78, "s": 12}}
+
+
+@pytest.mark.parametrize("step", list(KNOT_PASSES))
+def test_sqp_riccati_pass_starts_each_kind_on_a_warp(step):
+    """At 256 threads each kind of entry of a knot-step pass starts on a warp
+    boundary and fits before the next, so no warp runs two kinds; the pass
+    ends within the block."""
+    text = (_build.CSRC_DIR / "sqp_kernel.cu").read_text()
+    const = lambda name: int(re.search(r"\b%s = (\d+)[,;]" % name, text).group(1))
+    kinds = KNOT_PASSES[step]
+    starts = [const(f"k{step}{kind}") for kind in kinds] + [const(f"k{step}End")]
+    assert starts[0] == 0 and all(a % 32 == 0 for a in starts[:-1])
+    for (kind, n), a, b in zip(kinds.items(), starts, starts[1:]):
+        assert a + n <= b, kind
+    assert starts[-1] == starts[-2] + list(kinds.values())[-1] <= const("kMaxThreads")
+
+
 def test_sqp_horizon_limit():
     """One block holds up to 174 knots (N=64 in 86,960 bytes); past that a
     lane takes the smallest cluster whose blocks' segments fit, up to the

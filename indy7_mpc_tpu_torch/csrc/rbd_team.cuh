@@ -1,17 +1,19 @@
 // Team routines of the tick-epilogue kernel K2 (sm_90a): one RK4 step of
 // forward dynamics spread over a team of kTeam = 8 threads of one warp.
 //
-// rbd.cuh's per-thread routines (K2's thread path runs them) stay as they are;
-// these follow their arithmetic, item by item, with the work of a stage
-// split over the team:
+// A stage's work is split over the team, with the arithmetic of rbd.cuh's
+// routines, item by item:
 //   (a) joint j's rotation and torque (with the plant's friction), by
-//       thread j < 6;
-//   (b) the bias RNEA and the mass matrix as seven RNEA passes in lockstep:
+//       thread j < 6; at the step's start state, the wrench map
+//       (fk_last(), wrench_to_ee()) on thread 0;
+//   (b) the bias RNEA and the mass matrix as seven RNEA passes in lockstep
+//       (rnea_pass, the team's own decomposition of RNEA and CRBA):
 //       the bias on thread 0, column j of M (unit acceleration, no
 //       velocity, gravity or wrench) on thread 1 + j.  Measured on the
 //       H100, this beat the CRBA on one thread beside the bias (the warp's
 //       two roles diverge and run one after the other);
-//   (c) the 6x6 LDL^T and its two triangular solves, on thread 0.
+//   (c) the 6x6 LDL^T and its two triangular solves (ldl6(),
+//       ldl6_solve()), on thread 0.
 // Between phases the warp meets at __syncwarp().  Every thread of the warp
 // runs every phase and reaches every __syncwarp(), whatever it owns.  The
 // team's scratch (TeamScratch, and a slot of link forces per RNEA pass) and
@@ -156,120 +158,9 @@ DEV void rnea_pass(const ModelConsts& m, const float (*R)[3][3], const float* v,
   }
 }
 
-// a = M^-1 (tau - bias) by ldl6() and ldl6_solve() (one thread; M's lower
-// triangle is read).
-DEV void ldl_solve_unrolled(const float (*M)[NJ], const float* tau, const float* bias,
-                            float* a) {
-  float L[6][6], D[6], invD[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    float s = M[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k] * D[k];
-    D[j] = s;
-    invD[j] = 1.f / s;
-#pragma unroll
-    for (int i = j + 1; i < 6; ++i) {
-      float t = M[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k] * D[k];
-      L[i][j] = t * invD[j];
-    }
-  }
-  float y[6], x[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float s = tau[i] - bias[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-    y[i] = s;
-  }
-#pragma unroll
-  for (int i = 5; i >= 0; --i) {
-    float s = y[i] * invD[i];
-#pragma unroll
-    for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
-    x[i] = s;
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) a[i] = x[i];
-}
-
-// world_wrench_to_ee() from the stage's rotations: the world wrench
-// w[0], w[ws], ..., w[5 ws] mapped to the last joint frame (fl, nl).
-DEV void map_wrench(const ModelConsts& m, const float (*R)[3][3], const float* w, int ws,
-                    float* fl, float* nl) {
-  float Rw[3][3], pw[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    pw[a] = m.tree_p[0][a];
-#pragma unroll
-    for (int b = 0; b < 3; ++b) Rw[a][b] = R[0][a][b];
-  }
-#pragma unroll
-  for (int i = 1; i < NJ; ++i) {
-    float dp[3], Rn[3][3];
-    mv33(Rw, m.tree_p[i], dp);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) pw[a] = pw[a] + dp[a];
-    mm33(Rw, R[i], Rn);
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int b = 0; b < 3; ++b) Rw[a][b] = Rn[a][b];
-  }
-  const float f[3] = {w[0], w[ws], w[2 * ws]};
-  float pxf[3], nn[3];
-  cross3(pw, f, pxf);
-#pragma unroll
-  for (int a = 0; a < 3; ++a) nn[a] = w[(3 + a) * ws] - pxf[a];
-  mtv33(Rw, f, fl);
-  mtv33(Rw, nn, nl);
-}
-
-// fk_last()'s position with its joint loop unrolled (one thread).
-DEV void ee_pos_unrolled(const ModelConsts& m, const float* q, float* pw) {
-  float Rw[3][3];
-#pragma unroll
-  for (int i = 0; i < NJ; ++i) {
-    float R[3][3];
-    local_rotation(m, i, q[i], R);
-    if (i == 0) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        pw[a] = m.tree_p[0][a];
-#pragma unroll
-        for (int b = 0; b < 3; ++b) Rw[a][b] = R[a][b];
-      }
-    } else {
-      float dp[3], Rn[3][3];
-      mv33(Rw, m.tree_p[i], dp);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) pw[a] = pw[a] + dp[a];
-      mm33(Rw, R, Rn);
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int b = 0; b < 3; ++b) Rw[a][b] = Rn[a][b];
-    }
-  }
-}
-
-// Joint stops of apply_joint_limits() for joint i.
-DEV void joint_limit(const ModelConsts& m, int i, bool saturate, float* q, float* v) {
-  float qq = *q, vv = *v;
-  if (saturate) {
-    const float vl = m.velocity_limit[i];
-    vv = fminf(fmaxf(vv, -vl), vl);
-  }
-  if (qq > m.q_upper[i]) vv = fminf(vv, 0.f);
-  if (qq < m.q_lower[i]) vv = fmaxf(vv, 0.f);
-  *q = fminf(fmaxf(qq, m.q_lower[i]), m.q_upper[i]);
-  *v = vv;
-}
-
-// stage_accel() over the team: thread j < 6 passes joint j's q, v and u
-// and gets its acceleration back.  With w non-null the RK4 step's wrench
+// One stage's acceleration over the team, the plant's friction applied to
+// the torque: thread j < 6 passes joint j's q, v and u and gets its
+// acceleration back.  With w non-null the RK4 step's wrench
 // (w[0], w[ws], ...) is mapped first, from this stage's rotations (the
 // step's start state).  `f` holds the team's kPasses force slots.
 DEV float team_accel(const ModelConsts& m, TeamScratch& s, ForceSlot* f, int lt, float q,
@@ -283,7 +174,13 @@ DEV float team_accel(const ModelConsts& m, TeamScratch& s, ForceSlot* f, int lt,
   }
   __syncwarp();
   if (w != nullptr) {
-    if (lt == 0) map_wrench(m, s.R, w, ws, s.fl, s.nl);
+    if (lt == 0) {
+      float wl[6], Rw[3][3], pw[3];
+#pragma unroll
+      for (int a = 0; a < 6; ++a) wl[a] = w[a * ws];
+      fk_last(m, s.R, Rw, pw);
+      wrench_to_ee(Rw, pw, wl, s.fl, s.nl);
+    }
     __syncwarp();
   }
   // (b) the bias and M's columns
@@ -292,13 +189,22 @@ DEV float team_accel(const ModelConsts& m, TeamScratch& s, ForceSlot* f, int lt,
               lt == 0 ? s.bias : &s.M[0][lt - 1], lt == 0 ? 1 : NJ);
   __syncwarp();
   // (c) the LDL^T solve
-  if (lt == 0) ldl_solve_unrolled(s.M, s.tau, s.bias, s.a);
+  if (lt == 0) {
+    float L[6][6], invD[6], r[6], a[6];
+    ldl6(s.M, L, invD);
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) r[i] = s.tau[i] - s.bias[i];
+    ldl6_solve(L, invD, r, a);
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) s.a[i] = a[i];
+  }
   __syncwarp();
   return s.a[lt < NJ ? lt : 0];
 }
 
-// rk4_step() over the team, thread j < 6 on joint j of x = (q, v); the
-// world wrench is mapped once, at the start state.
+// One RK4 step over the team (rk4_step()'s, with the plant's friction),
+// thread j < 6 on joint j of x = (q, v); the world wrench is mapped once,
+// at the start state.
 DEV void team_rk4_step(const ModelConsts& m, TeamScratch& s, ForceSlot* f, int lt, float q,
                        float v, float u, float h, const float* w, int ws, bool friction,
                        float kv, float kc, float* oq, float* ov) {

@@ -38,14 +38,14 @@
 // barriers, and every sum is taken by one thread in a fixed order, so the
 // result is the same bits for any block size.  No tensor cores: the
 // products are 12x12 and the recursion needs full f32.  The rigid-body
-// items of stages 1 and 4 run rbd_unrolled.cuh's routines, whose per-link
-// arrays live in registers: they take the 255 registers a thread may have,
-// so 256 threads fill an SM's register file: one block per SM, 64 of 132
-// SMs at B=64.  The local-memory frame is what sincosf's slow path, the
-// rollout's du and a few words of loop state need (64 bytes a thread in
-// sqp_kernel<false>, ptxas, PERF.md); with rbd.cuh's looped routines it
-// was 1,824 bytes, which went through L2 and slowed linearize and the
-// line search the more blocks ran at once.
+// items of stages 1 and 4 and the Riccati sweep's LDL^T run rbd.cuh's
+// routines, whose per-link arrays live in registers: they take the 255
+// registers a thread may have, so 256 threads fill an SM's register file:
+// one block per SM, 64 of 132 SMs at B=64.  The local-memory frame is what
+// sincosf's slow path, the rollout's du and a few words of loop state need
+// (64 bytes a thread in sqp_kernel<false>, ptxas, PERF.md): a frame for
+// per-link arrays would go through L2 and slow linearize and the line
+// search the more blocks run at once.
 //
 // Past 174 knots one block's 227 KB cannot hold the horizon, which the TPU
 // kernel keeps whole in VMEM.  The lane then takes a cluster of C blocks
@@ -81,7 +81,6 @@
 #include <atomic>
 
 #include "rbd.cuh"
-#include "rbd_unrolled.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -311,7 +310,7 @@ DEV void cost_item(const ModelConsts& m, const SolveParams& p, const Smem& s,
 #pragma unroll
   for (int r = 0; r < 3; ++r) goal[r] = s.G[kl * kG + r];
   float pe[3], J[3][NJ];
-  unrolled::ee_pos_jacobian(m, x, pe, J);
+  ee_pos_jacobian(m, x, pe, J);
   float err[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) err[a] = pe[a] - goal[a];
@@ -362,14 +361,14 @@ DEV void dynamics_item(const ModelConsts& m, const SolveParams& p,
   const float* q = x;
   const float* v = x + NQ;
   float R[NJ][3][3], fl[3], nl[3];
-  unrolled::rotations(m, q, R);
+  rotations(m, q, R);
   if (p.use_wrench) {
     float Rw[3][3], pw[3];
-    unrolled::fk_last(m, R, Rw, pw);
-    unrolled::wrench_to_ee(Rw, pw, s.w, fl, nl);
+    fk_last(m, R, Rw, pw);
+    wrench_to_ee(Rw, pw, s.w, fl, nl);
   }
   float a[NJ], L[6][6], invD[6];
-  unrolled::forward_dynamics(m, R, v, u, p.use_wrench, fl, nl, a, L, invD);
+  forward_dynamics(m, R, v, u, p.use_wrench, fl, nl, a, L, invD);
   float* wk = s.work + kl * s.kw;
 #pragma unroll
   for (int i = 0; i < NJ; ++i) {
@@ -384,7 +383,7 @@ DEV void dynamics_item(const ModelConsts& m, const SolveParams& p,
   for (int j = 0; j < NU; ++j) {
     float e[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, col[6];
     e[j] = 1.f;
-    unrolled::ldl6_solve(L, invD, e, col);
+    ldl6_solve(L, invD, e, col);
 #pragma unroll
     for (int i = 0; i < NU; ++i) minv[i * NU + j] = dt * col[i];
   }
@@ -421,7 +420,7 @@ DEV void tangent_item(const ModelConsts& m, const SolveParams& p,
     ad[i] = Dual(wk[i]);
   }
   float dtau[NQ];
-  unrolled::rnea_tangent(m, qd, vd, ad, p.use_wrench, s.w, dtau);
+  rnea_tangent(m, qd, vd, ad, p.use_wrench, s.w, dtau);
   float L[6][6], invD[6], sol[NQ];
 #pragma unroll
   for (int i = 0; i < NJ; ++i) {
@@ -429,7 +428,7 @@ DEV void tangent_item(const ModelConsts& m, const SolveParams& p,
     for (int j = 0; j < i; ++j) L[i][j] = wk[6 + i * 6 + j];
     invD[i] = wk[42 + i];
   }
-  unrolled::ldl6_solve(L, invD, dtau, sol);
+  ldl6_solve(L, invD, dtau, sol);
   float* da = s.da + kl * kDa;
 #pragma unroll
   for (int i = 0; i < NQ; ++i) da[i * NX + t] = p.dt * -sol[i];
@@ -767,8 +766,8 @@ DEV void line_search_item(const ModelConsts& m, const SolveParams& p,
 #pragma unroll
   for (int r = 0; r < NX; ++r) xc[r] = s.X[kl * kX + r] + alpha * s.dX[kl * kDX + r];
   float R[NJ][3][3], Rw[3][3], pe[3];
-  unrolled::rotations(m, xc, R);
-  unrolled::fk_last(m, R, Rw, pe);
+  rotations(m, xc, R);
+  fk_last(m, R, Rw, pe);
   if (k == Nm1) {
     cost = merit_knot_cost(m, p, xc, pe, goal, p.QN);
   } else {
@@ -783,8 +782,8 @@ DEV void line_search_item(const ModelConsts& m, const SolveParams& p,
     }
     cost = merit_knot_cost(m, p, xc, pe, goal, 1.f) + p.R * u2;
     float fl[3], nl[3], acc[NJ], L[6][6], invD[6];
-    if (p.use_wrench) unrolled::wrench_to_ee(Rw, pe, s.w, fl, nl);
-    unrolled::forward_dynamics(m, R, xc + NQ, uc, p.use_wrench, fl, nl, acc, L, invD);
+    if (p.use_wrench) wrench_to_ee(Rw, pe, s.w, fl, nl);
+    forward_dynamics(m, R, xc + NQ, uc, p.use_wrench, fl, nl, acc, L, invD);
     // The defect against the candidate's x_{k+1}, formed only now.
     float dq2 = 0.f, dv2 = 0.f;
 #pragma unroll

@@ -35,9 +35,10 @@
 //   * after the block argmin, warp 0 alone runs the plant (each of its
 //     teams runs it, team 0 writes it), the last thread the trace FK.
 // Past B=256 the consensus is bound by the block's issue rate rather than
-// by its chain, and a thread per lane takes it (rbd.cuh's per-thread RK4:
-// a warp instruction serves 32 lanes where a team's serves 4), in its own
-// instantiation of the kernel; the plant stays on a team.
+// by its chain, and a thread per lane takes it (rbd.cuh's rk4_step: a warp
+// instruction serves 32 lanes where a team's serves 4), in its own
+// instantiation of the kernel; the plant stays on a team.  Both paths, the
+// plant and the trace FK call the same routines of rbd.cuh.
 // Each lane's error comes from one team or one thread, chosen by B alone,
 // and the argmin is order-free under the (err, lane) rule, so the result
 // is the same bits at any block size.  Measured on the H100 (PERF.md), 512 threads beat 256, and teams
@@ -121,15 +122,15 @@ tick_kernel(const __grid_constant__ ModelConsts mc_in, const __grid_constant__ M
   float my_err = INFINITY;
   int my_idx = INT_MAX;
   if constexpr (kThreadPerLane) {
-    // A thread per lane (rbd.cuh's per-thread RK4): a warp instruction
-    // serves 32 lanes, where a team's serves 4.
+    // A thread per lane (rbd.cuh's rk4_step): a warp instruction serves
+    // 32 lanes, where a team's serves 4.
     for (int lane = tid; lane < B; lane += nthreads) {
       float x[NX], ul[NU], w[6], xp[NX];
       for (int i = 0; i < NX; ++i) x[i] = x_last[i];
       for (int i = 0; i < NU; ++i)
         ul[i] = fminf(fmaxf(u_last[i], -mc.effort_limit[i]), mc.effort_limit[i]);
       for (int i = 0; i < 6; ++i) w[i] = f_batch[i * B + lane];
-      rk4_step(mc, x, ul, pp.dt, w, false, 0.f, 0.f, xp);
+      rk4_step(mc, x, ul, pp.dt, w, xp);
       apply_joint_limits(mc, xp, false);
       float e = 0.f;
       for (int i = 0; i < NX; ++i) e += (xp[i] - x_cur[i]) * (xp[i] - x_cur[i]);
@@ -186,8 +187,9 @@ tick_kernel(const __grid_constant__ ModelConsts mc_in, const __grid_constant__ M
     for (int i = 0; i < 6; ++i) f_est[i] = f_batch[i * B + b];
   }
   if (tid == nthreads - 1) {
-    float pe[3];
-    ee_pos_unrolled(mc, x_cur, pe);
+    float R[NJ][3][3], Rw[3][3], pe[3];
+    rotations(mc, x_cur, R);
+    fk_last(mc, R, Rw, pe);
     for (int a = 0; a < 3; ++a) eep[a] = pe[a];
   }
   if (pp.substeps == 0 || tid >= kTickWarp) return;

@@ -22,7 +22,7 @@ counted from the kernel's loops.  Work the kernel repeats across threads
 for parallelism (the 13 Quu factorizations of a knot, du in each rollout
 row, S's symmetrization at each read) counts once, as do the joint
 rotations that the tangent pass forms again in its backward pass to keep
-its link forces in registers (``csrc/rbd_unrolled.cuh``).
+its link forces in registers (``rnea_tangent`` in ``csrc/rbd.cuh``).
 
 **K2.**  :func:`k2_work` counts the work K2's function needs, item by
 item at one lane: per forward-dynamics call the six joint rotations, the

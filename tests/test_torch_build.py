@@ -353,13 +353,42 @@ def test_ptxas_figures_read_each_entry():
 
 
 def test_k1_items_run_the_unrolled_rigid_body_routines():
-    """K1's rigid-body items call the routines of rbd_unrolled.cuh, none of
-    rbd.cuh's looped ones, and every loop there is unrolled, so that their
-    per-link arrays and the model constants need no local memory."""
-    k1 = (_build.CSRC_DIR / "sqp_kernel.cu").read_text()
-    looped = r"(?<!unrolled::)\b(rnea|crba|forward_dynamics|world_wrench_to_ee|fk_last|ee_pos\w*)\("
-    assert re.findall(looped, k1) == []
-    assert '#include "rbd_unrolled.cuh"' in k1
-    src = (_build.CSRC_DIR / "rbd_unrolled.cuh").read_text().splitlines()
+    """K1 and K2 include rbd.cuh, the one header of rigid-body routines
+    (rbd_team.cuh builds K2's teams on it), and every loop there is
+    unrolled, so that the routines' per-link arrays and the model constants
+    need no local memory."""
+    csrc = _build.CSRC_DIR
+    assert {p.name for p in csrc.glob("*.cuh")} == {"rbd.cuh", "rbd_team.cuh"}
+    for name in ("sqp_kernel.cu", "tick_kernel.cu", "rbd_team.cuh"):
+        includes = re.findall(r'#include "([^"]+)"', (csrc / name).read_text())
+        assert "rbd.cuh" in includes and set(includes) <= {"rbd.cuh", "rbd_team.cuh"}
+    src = (csrc / "rbd.cuh").read_text().splitlines()
     loops = [i for i, line in enumerate(src) if re.match(r"\s*for \(", line)]
     assert loops and all(src[i - 1].strip() == "#pragma unroll" for i in loops)
+
+
+# Each rigid-body routine of the kernels and the names its copies went by.
+RIGID_BODY_ROUTINES = {
+    "fk_last": ["fk_last"],
+    "ldl6": ["ldl6"],
+    "ldl6_solve": ["ldl6_solve", "ldl_solve_unrolled"],
+    "rnea": ["rnea"],
+    "crba": ["crba"],
+    "forward_dynamics": ["forward_dynamics"],
+    "wrench_to_ee": ["wrench_to_ee", "world_wrench_to_ee", "map_wrench"],
+    "joint_limit": ["joint_limit"],
+    "apply_joint_limits": ["apply_joint_limits"],
+    "ee_pos": [r"ee_pos\w*"],
+}
+
+
+def test_each_rigid_body_routine_is_defined_once():
+    """Across csrc/, each rigid-body routine has one device definition
+    under one of its names: K1, K2's thread path and K2's teams call that
+    one, so a change to the math is made once."""
+    sources = [p.read_text() for p in sorted(_build.CSRC_DIR.glob("*.cu*"))]
+    counts = {}
+    for routine, names in RIGID_BODY_ROUTINES.items():
+        define = re.compile(rf"^(?:DEV|__device__)\b[^(;]*?\b(?:{'|'.join(names)})\s*\(", re.M)
+        counts[routine] = sum(len(define.findall(src)) for src in sources)
+    assert counts == dict.fromkeys(RIGID_BODY_ROUTINES, 1)

@@ -302,20 +302,21 @@ def test_sqp_kernel_more_alphas_match_plain(cuda, num_alphas):
 
 
 # ptxas's figures for K2's entries (registers, stack frame, spill store and
-# load bytes; nvcc 12.9, -O3, sm_90a): K1's rigid-body routines are its
-# own (csrc/rbd_unrolled.cuh), so K2 compiles as it did before them.
-K2_PTXAS = {"tick_kernelILb1": (64, 2880, 6348, 14180), "tick_kernelILb0": (85, 32, 0, 0)}
+# load bytes; nvcc 12.9, -O3, sm_90a): the thread-per-lane entry runs
+# rbd.cuh's rk4_step on 128 registers a thread at 512 threads, the team
+# entry rbd_team.cuh's routines with the teams' scratch in shared memory.
+K2_PTXAS = {"tick_kernelILb1": (128, 1800, 3020, 6120), "tick_kernelILb0": (85, 32, 0, 0)}
 
 
 def test_sqp_kernel_has_no_local_memory_frame(cuda):
     """K1's rigid-body items index every per-link array by compile-time
     constants, so the one-block kernel keeps at most 64 bytes of stack frame
     and the cluster kernel 120 (sincosf's slow path, the rollout's du and a
-    few words of loop state, against 1,824 and 2,096 bytes with rbd.cuh's
-    looped routines).  What ptxas still spills is loop state outside the
+    few words of loop state; per-link arrays indexed at run time would take
+    kilobytes).  What ptxas still spills is loop state outside the
     rigid-body code: at most 12 bytes in the one-block kernel, 60 in the
     cluster kernel (with the Riccati sweep's Quu factor inlined, 28 and 80).
-    K2's entries keep their figures."""
+    K2's entries have the figures of K2_PTXAS."""
     from indy7_mpc_tpu_torch import measure
     from indy7_mpc_tpu_torch.ops.kernels import _build
 
@@ -340,28 +341,81 @@ TICK_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(TICK_CASES))
-def test_tick_kernel_matches_plain(cuda, case):
+def _tick_case(device, case, lanes):
+    """TICK_CASES[case]'s models, plant config and K2 inputs at ``lanes``
+    hypotheses, from a seeded generator."""
     cfg, nan_lanes = TICK_CASES[case]
-    model = indy7(torch.float32, cuda)
+    model = indy7(torch.float32, device)
     smc, smp = LR.static_model(model), LR.static_model(perturb_model(model, cfg))
     rng = np.random.default_rng(4)
     x_cur = np.r_[INIT_Q, 0.1 * np.ones(6)]
     if case == "saturated":  # past the velocity limits, joint 5 near its stop
         x_cur = np.r_[INIT_Q[:5], 3.7, 3.0 * np.ones(6)]
-    f_batch = rng.normal(size=(6, B)) * 20.0
+    f_batch = rng.normal(size=(6, lanes)) * 20.0
     f_batch[3:] = 0.0
     f_batch[:, 0] = 0.0
     for lane in nan_lanes:
         f_batch[0, lane] = np.nan
     noise = cfg.torque_noise_std * rng.normal(size=(cfg.substeps, 6))
-    args = [_f32(a, cuda) for a in (
+    args = [_f32(a, device) for a in (
         x_cur, x_cur + 0.01 * rng.normal(size=12), 5.0 * rng.normal(size=6), f_batch,
-        3.0 * rng.normal(size=(6, B)), F_TRUE0,
-    )] + [_f32(noise, cuda) if cfg.torque_noise_std else None]
-    best = _k2_against_plain(smc, smp, cfg, args)
+        3.0 * rng.normal(size=(6, lanes)), F_TRUE0,
+    )] + [_f32(noise, device) if cfg.torque_noise_std else None]
+    return smc, smp, cfg, args
+
+
+@pytest.mark.parametrize("case", list(TICK_CASES))
+def test_tick_kernel_matches_plain(cuda, case):
+    best = _k2_against_plain(*_tick_case(cuda, case, B))
+    nan_lanes = TICK_CASES[case][1]
     if nan_lanes:  # a NaN consensus error wins, first NaN first
         assert best == nan_lanes[0]
+
+
+def k2_digest(device, case, lanes):
+    """sha256 of K2's outputs (err, best, x_next, u, eep, f_est, in that
+    order, as bytes) for TICK_CASES[case] at ``lanes`` hypotheses."""
+    smc, smp, cfg, args = _tick_case(device, case, lanes)
+    digest = hashlib.sha256()
+    for t in tick_epilogue(smc, smp, cfg, DT, *args):
+        digest.update(t.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+# K2's outputs for each TICK_CASES case at B=64 and 256 (a team a lane)
+# and 1,024 (a thread a lane), recorded on the card (NVIDIA H100 80GB
+# HBM3, nvcc 12.9) from commit 59ebd61's package: see
+# test_tick_kernel_outputs_equal_recorded_digest.
+K2_LANES = (64, 256, 1024)
+K2_DIGESTS = {
+    "nominal_b64": "c76e610feca4b83d2d72e8d5573026b25e3b439e78d62ec7c87f65c194cb6e79",
+    "nominal_b256": "ba22eebdee50a339e37bfc608ad0661c2af62a536dc9bc4a0495e85264feff7a",
+    "nominal_b1024": "c92e5c2c1af6935c550797012c1392876e1a1f2daaa97f74d8f0e62bd811f40a",
+    "perturbed_b64": "7dc034b376ad0adc3acd7ee58e8ca5cb52967f646d4ff57f09147dbfaeeb54d0",
+    "perturbed_b256": "aee36d25fbbf1b6a0df4e7bff6951e65d7dbd554947da2494de566a88a711110",
+    "perturbed_b1024": "55c641c3a67510a79474f38b6242edd97530d80a33c8e0e11d2636d0cd964b48",
+    "nan_consensus_b64": "595be3fe90036d1a3d2af5b85d95bf4b52a7f914084194ac0b1aa43e95c7f693",
+    "nan_consensus_b256": "52f199ccf302a6eeb9ff8ee03a3e7d36638a3f0e991c29bddd575b5161802182",
+    "nan_consensus_b1024": "2a4ece02a349053aae892eeca187245a3d61757b78480b62041a7532e52b9e6d",
+    "saturated_b64": "aa52da29b95b5f204ec7c5fa29d0ef92d2a62b80dcf035486b62307316978270",
+    "saturated_b256": "5e31f2aed1e50c8dabe2e86b4f345ee91741cacce915dc7e2db1e0490cf49230",
+    "saturated_b1024": "47d2c9ce3963eaa24eef2ca39a6f8b2e20b44d01fe727bad905d28984c1a30ba",
+}
+
+
+@pytest.mark.parametrize("name", list(K2_DIGESTS))
+def test_tick_kernel_outputs_equal_recorded_digest(cuda, name):
+    """K2's err, best, x_next, u, eep and f_est on both of its consensus
+    paths are the bits recorded from commit 59ebd61, when each rigid-body
+    routine had its own copy in the team path and the thread path: one
+    copy of each routine changes where values live, not how they are
+    computed.  Recorded on the card with this file:
+
+        mkdir -p build/parent && git archive 59ebd61 | tar -x -C build/parent
+        PYTHONPATH=build/parent python3 tests/test_torch_gpu.py
+    """
+    case, lanes = name.rsplit("_b", 1)
+    assert k2_digest(cuda, case, int(lanes)) == K2_DIGESTS[name]
 
 
 def _k2_against_plain(smc, smp, cfg, args, plant=True):
@@ -1411,6 +1465,9 @@ def test_run_mpc_outside_kernel_coverage_is_captured(cuda, cost, sqp):
     torch.cuda.synchronize()
 
 
-if __name__ == "__main__":  # K1_DIGESTS of the package on the path
+if __name__ == "__main__":  # K1_DIGESTS and K2_DIGESTS of the package on the path
     for name, shape in {**BENCH_SHAPES, **LONG_SHAPE}.items():
         print(f'    "{name}": "{k1_digest(torch.device("cuda"), *shape)}",')
+    for case in TICK_CASES:
+        for lanes in K2_LANES:
+            print(f'    "{case}_b{lanes}": "{k2_digest(torch.device("cuda"), case, lanes)}",')

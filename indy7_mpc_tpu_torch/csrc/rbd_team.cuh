@@ -191,7 +191,7 @@ DEV float team_accel(const ModelConsts& m, TeamScratch& s, ForceSlot* f, int lt,
   // (c) the LDL^T solve
   if (lt == 0) {
     float L[6][6], invD[6], r[6], a[6];
-    ldl6(s.M, L, invD);
+    ldl6(s.M, L, invD, RcpIeee());
 #pragma unroll
     for (int i = 0; i < NJ; ++i) r[i] = s.tau[i] - s.bias[i];
     ldl6_solve(L, invD, r, a);

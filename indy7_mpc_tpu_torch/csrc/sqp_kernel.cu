@@ -73,8 +73,9 @@
 // thread also reads clock64() on both sides of each segment's cluster
 // barrier in stages 2 and 3 and adds the cycles between to the hand-off
 // slot: the block's wait for the other blocks' segments, a part of the
-// riccati and rollout slots (0 at C = 1).  Off, they cost one load a block.
-// Either way the outputs are the same bits.
+// riccati and rollout slots (0 at C = 1).  The thread that factors Quu
+// counts its pivots off rcp_rn()'s fast path in one more slot.  Off, they
+// cost one load a block.  Either way the outputs are the same bits.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -141,12 +142,14 @@ static_assert(kFixedFloats ==
 // The slots of the stage clocks' accumulator (tracing.K1_SLOTS): the
 // cycles of the prologue's load, of stages 1-4 over every iteration, of
 // the epilogue's store and of the whole block, each summed over the
-// blocks, the number of blocks timed, and the cycles the blocks waited at
-// the segment hand-offs of stages 2 and 3 (cluster kernel only).
+// blocks, the number of blocks timed, the cycles the blocks waited at
+// the segment hand-offs of stages 2 and 3 (cluster kernel only), and the
+// number of Quu's pivots whose reciprocal left rcp_rn()'s fast path (a
+// count, not cycles; 0 while Quu's diagonal carries 2R + rho > 0).
 constexpr int kClkPrologue = 0, kClkLinearize = 1, kClkRiccati = 2, kClkRollout = 3;
 constexpr int kClkLineSearch = 4, kClkEpilogue = 5, kClkTotal = 6, kClkBlocks = 7;
-constexpr int kClkHandoff = 8;
-constexpr int kClockSlots = 9;
+constexpr int kClkHandoff = 8, kClkRcpSlow = 9;
+constexpr int kClockSlots = 10;
 
 // The alpha slots, the work floats a knot, and the floats a knot and of
 // the fixed region, for num_alphas alphas.
@@ -479,20 +482,24 @@ constexpr int kAQuu = 0, kASc = 32, kASA = 64, kASB = 160, kAEnd = 232;
 constexpr int kBFactor = 0, kBQxx = 32, kBQxu = 128, kBqx = 192, kBqu = 224, kBEnd = 230;
 constexpr int kCS = 0, kCs = 96, kCEnd = 108;
 
-// Quu = L D L^T in place: L below the diagonal, 1/D on it.  Kept out of
-// line: inlined into the sweep, its six divisions' calls to the slow path
-// of the IEEE reciprocal came with the sweep's pointers live, and ptxas
-// spilled more of stage 1 (sqp_kernel<true>: 136 bytes of stack and 80 of
-// spill stores, against 112 and 56 out of line).
-__device__ __noinline__ void factor_quu(float* F) {
+// Quu = L D L^T in place: L below the diagonal, 1/D on it, the pivots'
+// reciprocals by rcp_rn().  With the stage clocks on, adds the number of
+// pivots whose reciprocal took rcp_rn()'s slow path to kClkRcpSlow.
+// Inlined around the compiler's divisions it spilled more of stage 1
+// (sqp_kernel<true>: 136 bytes of stack and 80 of spill stores, against
+// 112 and 56 out of line); around rcp_rn() it keeps 112 and 56 in line.
+DEV void factor_quu(float* F, const LaneState* st, unsigned long long* clocks) {
   float M[6][6], L[6][6], invD[6];
   for (int i = 0; i < NU; ++i)
     for (int j = 0; j <= i; ++j) M[i][j] = F[i * NU + j];
-  ldl6(M, L, invD);
+  int slow = 0;
+  ldl6(M, L, invD, RcpInline{&slow});
   for (int i = 0; i < NU; ++i) {
     for (int j = 0; j < i; ++j) F[i * NU + j] = L[i][j];
     F[i * NU + i] = invD[i];
   }
+  if (slow != 0 && st->clocks)
+    atomicAdd(clocks + kClkRcpSlow, static_cast<unsigned long long>(slow));
 }
 
 // Stage 2 on the block's segment: the Riccati backward sweep over its
@@ -501,7 +508,7 @@ __device__ __noinline__ void factor_quu(float* F) {
 // where it is written (the terminal S as the cost builds it), so every
 // reader loads it as stored.
 template <bool Cl>
-DEV void sweep_segment(const SolveParams& p, const Smem& s) {
+DEV void sweep_segment(const SolveParams& p, const Smem& s, unsigned long long* clocks) {
   const int N = p.N, Nm1 = N - 1, tid = threadIdx.x, nt = blockDim.x;
   const float dt = p.dt, rho = s.st->rho;
   if (s.hi == N) {
@@ -611,7 +618,7 @@ DEV void sweep_segment(const SolveParams& p, const Smem& s) {
         s.qu[t] = acc + twoR * s.U[kl * kU + t];
       }
     }
-    if (tid == kBFactor) factor_quu(s.Quu);
+    if (tid == kBFactor) factor_quu(s.Quu, s.st, clocks);
     __syncthreads();
     // Pass C: K = -Quu^-1 Qxu^T and kff = -Quu^-1 qu from the factor, each
     // thread solving the columns it needs; S' = Qxx + Qxu K stored
@@ -670,7 +677,7 @@ DEV void sweep_segment(const SolveParams& p, const Smem& s) {
 template <bool Cl>
 DEV void backward_sweep(const SolveParams& p, const Smem& s, unsigned long long* clocks) {
   for (int r = s.nblk - 1; r >= 0; --r) {
-    if (r == s.rank) sweep_segment<Cl>(p, s);
+    if (r == s.rank) sweep_segment<Cl>(p, s, clocks);
     if constexpr (Cl) segment_handoff(s.st, clocks);
   }
 }

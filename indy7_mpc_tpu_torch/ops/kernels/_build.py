@@ -116,6 +116,9 @@ ARGTYPES = {
     # controller and plant models, plant params, 13 pointers, threads, stream
     "indy7_tick_epilogue": [_abi.ModelConsts, _abi.ModelConsts, _abi.PlantParams]
     + [_PTR] * 13 + [_INT, _PTR],
+    # the checker of rbd.cuh's reciprocal: chunk, log2 of its size, two
+    # outputs, stream
+    "indy7_rcp_check": [_INT, _INT, _PTR, _PTR, _PTR],
 }
 
 

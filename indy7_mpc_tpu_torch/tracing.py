@@ -30,8 +30,11 @@ Off by default; :func:`enable` switches it on and off for the process.
   stage's cycles; in the cluster kernel (past 174 knots) it also adds
   the cycles its block waits at the segment hand-offs of the Riccati
   sweep and the rollout (``handoff``, a part of ``riccati`` plus
-  ``rollout``; 0 with one block a lane).  :func:`k1_stage_cycles` reads
-  and zeroes the sums.
+  ``rollout``; 0 with one block a lane).  The thread that factors the
+  sweep's Quu counts its pivots whose reciprocal left the fast path of
+  ``rcp_rn`` (``csrc/rbd.cuh``) in ``rcp_slow``, a count and not cycles,
+  0 while the fast path engages.  :func:`k1_stage_cycles` reads and
+  zeroes the sums.
 """
 from __future__ import annotations
 
@@ -50,10 +53,11 @@ MAX_RECORDS = 1 << 16
 # the prologue's load, of stage 1 (linearize), 2 (the Riccati sweep), 3
 # (the rollout), 4 (the line search and the update) over every SQP
 # iteration, of the epilogue's store, of the whole block, each summed over
-# the blocks timed, the number of blocks timed, and the cycles the blocks
-# waited at the cluster barriers between segments in stages 2 and 3.
+# the blocks timed, the number of blocks timed, the cycles the blocks
+# waited at the cluster barriers between segments in stages 2 and 3, and
+# the number of Quu's pivots whose reciprocal took rcp_rn's slow path.
 K1_STAGES = ("prologue", "linearize", "riccati", "rollout", "linesearch", "epilogue")
-K1_SLOTS = K1_STAGES + ("total", "blocks", "handoff")
+K1_SLOTS = K1_STAGES + ("total", "blocks", "handoff", "rcp_slow")
 
 # Cumulative counts this module keeps; the other counters are read where
 # they are kept (see counters()).

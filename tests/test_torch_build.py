@@ -49,7 +49,7 @@ def test_nvcc_command_targets_sm90a_and_csrc_only():
         assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
         assert {"-O3", "-std=c++17", "-Xptxas=-v"} <= set(cmd)
         srcs += [Path(c) for c in cmd[1:] if c.endswith((".cu", ".cuh", ".cpp", ".cc", ".c"))]
-    assert {p.name for p in srcs} == {"sqp_kernel.cu", "tick_kernel.cu"}
+    assert {p.name for p in srcs} == {"sqp_kernel.cu", "tick_kernel.cu", "rcp_check.cu"}
     assert all(p.parent == _build.CSRC_DIR for p in srcs)
     assert (_build.CSRC_DIR / "rbd.cuh").exists() and (_build.CSRC_DIR / "rbd_team.cuh").exists()
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
@@ -143,15 +143,49 @@ def test_sqp_shared_memory_layout_mirrors_the_source():
 
 
 def test_sqp_clock_slots_end_with_the_handoff():
-    """K1's stage-clock accumulator holds ``len(tracing.K1_SLOTS)`` slots,
-    and the segment hand-off is the last of them (``kClkHandoff``), so the
-    slots before it keep their indices."""
+    """K1's stage-clock accumulator holds ``len(tracing.K1_SLOTS)`` slots:
+    the segment hand-off keeps index 8 (``kClkHandoff``), and the count of
+    Quu's pivots off rcp_rn's fast path follows it, last
+    (``kClkRcpSlow``), so the slots before it keep their indices."""
     from indy7_mpc_tpu_torch import tracing
 
     text = (_build.CSRC_DIR / "sqp_kernel.cu").read_text()
-    const = lambda name: int(re.search(r"\b%s = (\d+);" % name, text).group(1))
-    assert const("kClockSlots") == len(tracing.K1_SLOTS) == 9
-    assert tracing.K1_SLOTS[-1] == "handoff" and const("kClkHandoff") == const("kClockSlots") - 1
+    const = lambda name: int(re.search(r"\b%s = (\d+)[,;]" % name, text).group(1))
+    assert const("kClockSlots") == len(tracing.K1_SLOTS) == 10
+    assert tracing.K1_SLOTS[8] == "handoff" and const("kClkHandoff") == 8
+    assert tracing.K1_SLOTS[-1] == "rcp_slow" and const("kClkRcpSlow") == const("kClockSlots") - 1
+
+
+def _device_function(text, signature):
+    """The body of the device function that starts with ``signature``."""
+    body = text[text.index(signature):]
+    return body[:body.index("\n}\n")]
+
+
+def test_ldl6_takes_its_reciprocals_from_rcp_rn():
+    """rbd.cuh's one ldl6 takes each pivot's reciprocal from its ``rcp``,
+    rcp_rn by default (K1's Quu factor and forward dynamics), and no
+    division is left in it; K2's callers (its teams and rk4_step) pass
+    the compiler's ``1.f / x``.  rcp_rn refines MUFU.RCP's approximation and
+    leaves the inputs outside its fast range to the compiler's correctly
+    rounded reciprocal, out of line."""
+    text = (_build.CSRC_DIR / "rbd.cuh").read_text()
+    ldl6 = _device_function(text, "DEV void ldl6(")
+    assert len(re.findall(r"\brcp\(", ldl6)) == 1 and "/" not in ldl6.split(") {", 1)[1]
+    assert re.search(r"template <class Rcp = RcpInline>\nDEV void ldl6\(", text)
+    takes = dict(re.findall(r"struct (Rcp\w+) \{.*?operator\(\)\(float x\) const \{ return (.*?); \}",
+                            text, re.S))
+    assert takes == {"RcpInline": "rcp_rn(x, slow)", "RcpIeee": "1.f / x"}
+    team = (_build.CSRC_DIR / "rbd_team.cuh").read_text()
+    assert re.findall(r"\bldl6\([^;]*\);", team) == ["ldl6(s.M, L, invD, RcpIeee());"]
+    rk4 = _device_function(text, "DEV void rk4_step(")
+    assert rk4.count("forward_dynamics(") == rk4.count("RcpIeee());") == 4
+    factor = _device_function((_build.CSRC_DIR / "sqp_kernel.cu").read_text(), "DEV void factor_quu(")
+    assert "ldl6(M, L, invD, RcpInline{&slow});" in factor
+    rcp = _device_function(text, "DEV float rcp_rn(")
+    assert "rcp.approx.ftz.f32" in rcp and rcp.count("fmaf(") == 2
+    assert "r = rcp_rn_slow(x);" in rcp
+    assert "__noinline__ float rcp_rn_slow(float x) { return __frcp_rn(x); }" in text
 
 
 def _knot_loop(text):

@@ -301,6 +301,53 @@ def test_sqp_kernel_more_alphas_match_plain(cuda, num_alphas):
         _k1_against_plain(sm, sqp, *_k1_inputs(cuda, 16, horizon))
 
 
+def _rcp_pairs(cuda, chunk, log2n, fast, ref):
+    """(rcp_rn(x), 1.f / x) as int32 bits for the 2^log2n bit patterns
+    from chunk * 2^log2n on, by the checker entry (csrc/rcp_check.cu)."""
+    from indy7_mpc_tpu_torch.ops.kernels import _build
+
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    err = _build.load_library().indy7_rcp_check(chunk, log2n, fast.data_ptr(), ref.data_ptr(),
+                                                stream)
+    assert err == 0, err
+    return fast.view(torch.int32), ref.view(torch.int32)
+
+
+# Bit patterns at the edges of rcp_rn's fast range (biased exponents 1-252)
+# and the special values: +-0, subnormals, 2^-126 and its neighbours, the
+# largest fast input, 2^126, the largest float, +-inf, NaNs, and 1.
+RCP_EDGES = (0x00000000, 0x80000000, 0x00000001, 0x007FFFFF, 0x80000001, 0x807FFFFF,
+             0x00800000, 0x00800001, 0x80800000, 0x7E7FFFFF, 0x7E800000, 0xFE7FFFFF,
+             0xFE800000, 0x7F7FFFFF, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFFFFFFF,
+             0x3F800000)
+
+
+def test_rcp_rn_is_the_ieee_reciprocal_for_every_float(cuda):
+    """rbd.cuh's rcp_rn(x), which takes every LDL^T pivot's reciprocal in
+    K1, is the same bits as `1.f / x` for all 2^32 bit patterns, or both
+    NaN; at the range edges and special values (RCP_EDGES) both equal
+    numpy's float32 1 / x too."""
+    log2n = 28
+    fast = torch.empty(1 << log2n, dtype=torch.float32, device=cuda)
+    ref = torch.empty_like(fast)
+    for chunk in range(1 << (32 - log2n)):
+        a, b = _rcp_pairs(cuda, chunk, log2n, fast, ref)
+        bad = torch.nonzero((a != b) & ~(torch.isnan(fast) & torch.isnan(ref)))
+        assert bad.numel() == 0, [hex((chunk << log2n) + int(i)) for i in bad[:8, 0]]
+    small = torch.empty(1 << 10, dtype=torch.float32, device=cuda)
+    small_ref = torch.empty_like(small)
+    for bits in RCP_EDGES:
+        a, b = _rcp_pairs(cuda, bits >> 10, 10, small, small_ref)
+        x = np.array([bits], np.uint32).view(np.float32)
+        with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+            want = int((np.float32(1.0) / x).view(np.int32)[0])
+        got = [int(a[bits & 1023]), int(b[bits & 1023])]
+        if np.isnan(x[0]):
+            assert all(np.isnan(np.array([g], np.int32).view(np.float32)[0]) for g in got)
+        else:
+            assert got == [want, want], (hex(bits), got, want)
+
+
 # ptxas's figures for K2's entries (registers, stack frame, spill store and
 # load bytes; nvcc 12.9, -O3, sm_90a): the thread-per-lane entry runs
 # rbd.cuh's rk4_step on 128 registers a thread at 512 threads, the team
@@ -315,7 +362,8 @@ def test_sqp_kernel_has_no_local_memory_frame(cuda):
     few words of loop state; per-link arrays indexed at run time would take
     kilobytes).  What ptxas still spills is loop state outside the
     rigid-body code: at most 12 bytes in the one-block kernel, 60 in the
-    cluster kernel (with the Riccati sweep's Quu factor inlined, 28 and 80).
+    cluster kernel (with the Riccati sweep's Quu factor inlined around the
+    compiler's divisions, 28 and 80; around rcp_rn, 12 and 56).
     K2's entries have the figures of K2_PTXAS."""
     from indy7_mpc_tpu_torch import measure
     from indy7_mpc_tpu_torch.ops.kernels import _build

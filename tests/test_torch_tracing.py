@@ -164,7 +164,8 @@ def test_k1_clock_slots_mirror_the_source():
         tracing.K1_SLOTS)
     names = {"Prologue": "prologue", "Linearize": "linearize", "Riccati": "riccati",
              "Rollout": "rollout", "LineSearch": "linesearch", "Epilogue": "epilogue",
-             "Total": "total", "Blocks": "blocks", "Handoff": "handoff"}
+             "Total": "total", "Blocks": "blocks", "Handoff": "handoff",
+             "RcpSlow": "rcp_slow"}
     assert {names[k[len("kClk"):]]: v for k, v in slots.items()} == {
         s: i for i, s in enumerate(tracing.K1_SLOTS)}
 
@@ -243,6 +244,29 @@ def test_k1_handoff_clock_counts_the_cluster_wait(cuda, traced, lanes, horizon):
         assert cycles["handoff"] == 0, cycles
     else:
         assert 0 < cycles["handoff"] < cycles["riccati"] + cycles["rollout"], cycles
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,horizon", [(64, 64), (64, 256)])
+def test_k1_factor_reciprocals_stay_on_the_fast_path(cuda, traced, lanes, horizon):
+    """``rcp_slow`` reads 0 after a clocked launch on the seeded inputs (one
+    block a lane at N=64, clusters of 2 at N=256): every pivot of Quu,
+    whose diagonal carries 2R + rho > 0, takes rcp_rn's fast path.  The
+    slot does count: with R at 1e38, Quu's pivots (2R scaled by the cost's
+    1/(|err| + eps), + rho) reach 2^126 or inf, past the fast range."""
+    import dataclasses
+
+    from indy7_mpc_tpu_torch.ops import lane_rbd as LR
+    from indy7_mpc_tpu_torch.ops.kernels import sqp_kernel as K1
+
+    sm = LR.static_model(indy7(torch.float32, cuda))
+    args, w = _k1_inputs(cuda, lanes, horizon)
+    tracing.k1_stage_cycles(cuda)
+    K1.sqp_solve(sm, COST, SQP, DT, *args, wrench=w)
+    cycles = tracing.k1_stage_cycles(cuda)
+    assert cycles["blocks"] == lanes * K1.cluster_size(horizon) and cycles["rcp_slow"] == 0, cycles
+    K1.sqp_solve(sm, dataclasses.replace(COST, R=1e38), SQP, DT, *args, wrench=w)
+    assert tracing.k1_stage_cycles(cuda)["rcp_slow"] > 0
 
 
 # ptxas's figures of the one-block K1 entry (registers, stack frame, spill
